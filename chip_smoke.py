@@ -9,12 +9,15 @@ non-zero:
 1. device  — the card (``nvidia-smi`` name and power limit), torch/CUDA;
 2. build   — every kernel under ``src/repro_torch/csrc`` with nvcc;
 3. kernels — each kernel against its plain PyTorch version on the card
-   (the cases of ``tests/test_kernels.py`` plus the serving shape), and
-   its time beside the plain version, a library call and its bound;
+   (the cases of ``tests/test_kernels.py``, head dim 256, gemma3-4b's
+   attention shape with and without its window, each through the kernel
+   that ``route`` picks; then both kernels at the serving shape), and
+   their times beside the plain version, a library call and the bound;
 4. main    — qwen3-32b at full width, depth cut to 8 layers: the xMem
    serving gate (``pick_batch``, traced on the CPU), then ``serve`` on
    the card (two requests of 2048-token prompts, 16 decoded tokens
-   each), the kernel's launch count, each phase's estimate beside the
+   each), the launch counts by kernel (all on sm90), each phase's
+   estimate beside the
    measured peak, the card's allocator requests during one prefill
    aligned with the trace's (``requests``), the device time of one warm
    prefill by kernel (``profile``), and the kernel path's logits against
@@ -44,6 +47,12 @@ MAX_LEN = 2064
 PROMPT_LEN = 2048
 DECODE_TOKENS = 16
 REQUESTS = 2
+SERVING_SHAPE = (8, 64, 8, PROMPT_LEN, 128)   # B, H, Hkv, S, d of qwen3-32b
+GEMMA_SHAPE = (2, 8, 4, 4096, 256)            # gemma3-4b, head dim 256
+GEMMA_WINDOW = 1024                           # its local layers' window
+# kernel -> (source, timed launches at the serving shape)
+KERNELS = {"sm90": ("src/repro_torch/csrc/flash_attention_sm90.cu", 20),
+           "simt": ("src/repro_torch/csrc/flash_attention.cu", 3)}
 # |flash - dense| / max|dense| on the batch-1 prefill logits, bf16 model:
 # both paths do f32 attention math from the same bf16 q/k/v and round
 # the output to bf16, so they differ by output roundings carried
@@ -76,6 +85,19 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(bhd: int, s: int, window, tensors) -> dict:
+    """The least time of causal attention over ``s`` positions for
+    ``bhd`` = B * H * d: its operations (two products over the pairs the
+    mask lets through) at the bf16 tensor-core rate, or its bytes (each
+    tensor once) at the memory rate, whichever is larger."""
+    flops = 4.0 * bhd * attended_pairs(s, s, True, window)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_ops = flops / PEAK_FLOPS["torch.bfloat16"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def attended_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -126,14 +148,15 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     info = build.build_all()
     ptxas = {name: [ln.strip() for ln in v["ptxas"].splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln or "C75" in ln]
              for name, v in info.items()}
     emit("build", seconds=time.perf_counter() - t0,
          per_source={n: v["seconds"] for n, v in info.items()}, ptxas=ptxas)
 
 
-def phase_kernels() -> dict:
-    """Kernel vs plain version on the card; returns the summary row."""
+def phase_kernels() -> list[dict]:
+    """Each kernel against the plain version on the card; returns the
+    summary rows, one a kernel."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -154,12 +177,12 @@ def phase_kernels() -> dict:
     for dtype in (f32, bf16):
         for B, H, Hkv, S, d in [(1, 2, 2, 128, 64), (2, 4, 2, 256, 64),
                                 (1, 8, 2, 128, 128), (2, 2, 1, 192, 32),
-                                (2, 4, 2, 64, 16)]:
+                                (2, 4, 2, 64, 16), (1, 4, 2, 256, 256)]:
             cases.append((f"b{B}h{H}kv{Hkv}s{S}d{d}", B, H, Hkv, S, d,
                           dtype, True, None))
-    for w in (32, 64, 100):
-        cases.append((f"window{w}", 1, 4, 2, 256, 64, f32, True, w))
-    cases.append(("non_causal", 1, 2, 2, 128, 64, f32, False, None))
+        for w in (32, 64, 100):
+            cases.append((f"window{w}", 1, 4, 2, 256, 64, dtype, True, w))
+        cases.append(("non_causal", 1, 2, 2, 128, 64, dtype, False, None))
 
     results = []
     for name, B, H, Hkv, S, d, dtype, causal, window in cases:
@@ -170,67 +193,110 @@ def phase_kernels() -> dict:
         torch.cuda.synchronize()
         ref = attention_ref(q, k, v, causal=causal, window=window)
         err = (out.float() - ref.float()).abs().max().item()
-        results.append({"case": name, "dtype": str(dtype), "err": err,
+        results.append({"case": name, "dtype": str(dtype),
+                        "kernel": fa.route(dtype, d), "err": err,
                         "tol": tol[dtype]})
         if not err < tol[dtype]:
             raise AssertionError(f"kernel case {name} {dtype}: max error "
                                  f"{err} >= {tol[dtype]}")
     # the ragged S=100 case through the model-layout wrapper
-    q, k, v = rand(2, 100, 4, 64), rand(2, 100, 2, 64), rand(2, 100, 2, 64)
-    out = ops.flash_attention(q, k, v, causal=True)
-    err = (out - dense_attention(q, k, v, causal=True)).abs().max().item()
-    results.append({"case": "ragged_s100_wrapper", "dtype": "torch.float32",
-                    "err": err, "tol": 2e-5})
-    if not err < 2e-5:
-        raise AssertionError(f"ragged wrapper case: max error {err}")
+    for dtype in (f32, bf16):
+        q, k, v = (rand(2, 100, 4, 64, dtype=dtype),
+                   rand(2, 100, 2, 64, dtype=dtype),
+                   rand(2, 100, 2, 64, dtype=dtype))
+        out = ops.flash_attention(q, k, v, causal=True)
+        err = (out.float() - dense_attention(q.float(), k.float(), v.float(),
+                                             causal=True)).abs().max().item()
+        results.append({"case": "ragged_s100_wrapper", "dtype": str(dtype),
+                        "kernel": fa.route(dtype, 64), "err": err,
+                        "tol": tol[dtype]})
+        if not err < tol[dtype]:
+            raise AssertionError(f"ragged wrapper case {dtype}: max error "
+                                 f"{err}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    # the serving shape, in the model layout the main path passes
-    B, H, Hkv, S, d = 8, 64, 8, PROMPT_LEN, 128
+    # gemma3-4b's attention shape (head dim 256), global and local layers
+    gemma = []
+    for window in (None, GEMMA_WINDOW):
+        B, H, Hkv, S, d = GEMMA_SHAPE
+        q = rand(B, S, H, d, dtype=bf16)
+        k = rand(B, S, Hkv, d, dtype=bf16)
+        v = rand(B, S, Hkv, d, dtype=bf16)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        ref = attention_ref(qt, kt, vt, causal=True, window=window)
+        err = (out.transpose(1, 2).float() - ref.float()).abs().max().item()
+        del ref
+        name = f"gemma3_b{B}h{H}kv{Hkv}s{S}d{d}_window{window}"
+        results.append({"case": name, "dtype": str(bf16),
+                        "kernel": fa.route(bf16, d), "err": err,
+                        "tol": tol[bf16]})
+        if not err < tol[bf16]:
+            raise AssertionError(f"{name}: max error {err}")
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                 window=window), reps=20)
+        row = {"window": window, "shape": [B, H, Hkv, S, d], "ms": ms,
+               "max_abs_err": err,
+               **bound(B * H * d, S, window, (q, k, v, out))}
+        if window is None:
+            torch.cuda.empty_cache()
+            row["library_ms"] = cuda_ms(lambda: sdpa(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
+        gemma.append(row)
+        del q, k, v, qt, kt, vt, out
+        torch.cuda.empty_cache()
+
+    # the serving shape, in the model layout the main path passes: both
+    # kernels against the plain version, their times, the library call's
+    B, H, Hkv, S, d = SERVING_SHAPE
     q = rand(B, S, H, d, dtype=bf16)
     k = rand(B, S, Hkv, d, dtype=bf16)
     v = rand(B, S, Hkv, d, dtype=bf16)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    out = ops.flash_attention(q, k, v, causal=True)
-    torch.cuda.synchronize()
     ref = attention_ref(qt, kt, vt, causal=True)
-    err = (out.transpose(1, 2).float() - ref.float()).abs().max().item()
-    results.append({"case": f"serving_b{B}h{H}kv{Hkv}s{S}d{d}",
-                    "dtype": str(bf16), "err": err, "tol": tol[bf16]})
-    if not err < tol[bf16]:
-        raise AssertionError(f"serving-shape case: max error {err}")
-    del ref
-    torch.cuda.empty_cache()
-
-    kernel_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True),
-                        reps=5)
     plain_ms = cuda_ms(lambda: attention_ref(qt, kt, vt, causal=True),
                        reps=2)
+    outs = {}
+    for kernel in KERNELS:
+        outs[kernel] = fa.launch(kernel, qt, kt, vt, causal=True)
+        torch.cuda.synchronize()
+        err = (outs[kernel].float() - ref.float()).abs().max().item()
+        results.append({"case": f"serving_b{B}h{H}kv{Hkv}s{S}d{d}",
+                        "dtype": str(bf16), "kernel": kernel, "err": err,
+                        "tol": tol[bf16]})
+        if not err < tol[bf16]:
+            raise AssertionError(f"serving-shape case, {kernel}: max error "
+                                 f"{err}")
+        outs[kernel] = err
+    del ref
     torch.cuda.empty_cache()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                       enable_gqa=True), reps=10)
-    flops = 4.0 * B * H * d * attended_pairs(S, S, True, None)
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
-    t_ops = flops / PEAK_FLOPS[str(bf16)] * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    row = {"name": "flash_attention", "route": "cuda",
-           "source": "src/repro_torch/csrc/flash_attention.cu",
-           "replaces": "src/repro/kernels/flash_attention.py:93",
-           "launches": None, "max_abs_err": err, "ms": kernel_ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "library_ms": library_ms}
+    serving_bound = bound(B * H * d, S, None, (q, k, v, q))   # q: the out
+    rows = []
+    for kernel, (source, reps) in KERNELS.items():
+        ms = cuda_ms(lambda: fa.launch(kernel, qt, kt, vt, causal=True),
+                     reps=reps)
+        rows.append({"name": f"flash_attention_{kernel}", "route": "cuda",
+                     "source": source,
+                     "replaces": "src/repro/kernels/flash_attention.py:93",
+                     "launches": None, "max_abs_err": outs[kernel],
+                     "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": serving_bound["bound_ms"],
+                     "bound_by": serving_bound["bound_by"],
+                     "library_ms": library_ms})
     emit("kernels", cases=results, shape=[B, H, Hkv, S, d],
-         flops=flops, bytes=nbytes, max_abs_err=err, kernel_ms=kernel_ms,
-         **{key: row[key] for key in ("plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")},
-         tflops=flops / kernel_ms / 1e9)
-    del q, k, v, qt, kt, vt, out
+         flops=serving_bound["flops"], bytes=serving_bound["bytes"],
+         rows=rows, tflops={r["name"]: serving_bound["flops"] / r["ms"] / 1e9
+                            for r in rows},
+         gemma3=gemma)
+    del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    return row
+    return rows
 
 
-def phase_main(row: dict) -> None:
+def phase_main(rows: list[dict]) -> None:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.estimator import XMemEstimator
@@ -268,15 +334,17 @@ def phase_main(row: dict) -> None:
 
     params = M.init_params(cfg, 0, device="cuda")
     torch.cuda.synchronize()
-    fa.launches = 0
+    fa.reset_launches()
     res = srv.serve(cfg, batch, MAX_LEN, PROMPT_LEN, DECODE_TOKENS, "cuda",
                     requests=REQUESTS, params=params)
     launches = fa.launches
-    row["launches"] = launches
+    by_kernel = dict(fa.launches_by_kernel)
+    for row in rows:
+        row["launches"] = by_kernel[row["name"].rsplit("_", 1)[1]]
     want = cfg.n_layers * REQUESTS
-    if launches != want:
-        raise AssertionError(f"kernel launched {launches} times, "
-                             f"expected {want} (n_layers per prefill)")
+    if launches != want or by_kernel["sm90"] != want:
+        raise AssertionError(f"kernel launched {by_kernel}, expected "
+                             f"{want} (n_layers per prefill), all sm90")
     for lg in res.prefill_logits:
         if tuple(lg.shape) != (batch, 1, cfg.padded_vocab):
             raise AssertionError(f"prefill logits shape {tuple(lg.shape)}")
@@ -314,6 +382,7 @@ def phase_main(row: dict) -> None:
 
     emit("main", batch=batch, prompt_len=PROMPT_LEN, tokens=DECODE_TOKENS,
          requests=REQUESTS, kernel_launches=launches,
+         launches_by_kernel=by_kernel,
          prefill_ms=[s * 1e3 for s in res.prefill_s],
          decode_s=res.decode_s,
          decode_tok_per_s=[res.decode_tok_per_s(r)
@@ -410,7 +479,7 @@ def phase_profile(cfg, params, batch: int) -> None:
 
     def bucket(name):
         low = name.lower()
-        if "attn_fwd_kernel" in low:
+        if "attn_fwd_kernel" in low or "attn_fwd_sm90_kernel" in low:
             return "flash_attention"
         if any(t in low for t in ("gemm", "xmma", "nvjet", "cutlass")):
             return "matmul"
@@ -435,9 +504,9 @@ def main() -> int:
     import repro_torch  # noqa: F401 — fails outside a checkout
     info = phase_device()
     phase_build()
-    row = phase_kernels()
-    phase_main(row)
-    print(json.dumps({"kernels": [row]}), flush=True)
+    rows = phase_kernels()
+    phase_main(rows)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

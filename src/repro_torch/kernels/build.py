@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on
 first use into ``build/kernels/<name>-<hash>.so`` at the repository root
-(``.gitignore`` lists ``build/``), keyed by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
+(``.gitignore`` lists ``build/``), keyed by a hash of the source, every
+header under ``csrc/``, the flags and the include paths they name, so an
+edited source or header rebuilds and an unchanged one loads at once.
 Nothing is built when a module is imported: CPU-only installs import
 every module and never call here.
 
@@ -54,9 +55,24 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def _include_dirs(flags) -> list[str]:
+    """The paths of ``-I<dir>`` and ``-I <dir>`` in ``flags``."""
+    dirs = []
+    for i, flag in enumerate(flags):
+        if flag == "-I" and i + 1 < len(flags):
+            dirs.append(flags[i + 1])
+        elif flag.startswith("-I") and len(flag) > 2:
+            dirs.append(flag[2:])
+    return dirs
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    for inc in _include_dirs(NVCC_FLAGS):
+        digest.update(b"\0" + str(Path(inc).resolve()).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

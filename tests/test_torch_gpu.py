@@ -7,6 +7,8 @@ port's dependencies:
 
 Without a card each one skips.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -27,17 +29,52 @@ def _need_card():
 def test_kernel_vs_plain_on_the_card():
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(0)
-    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        q = torch.randn(2, 8, 192, 64, generator=g, device="cuda").to(dtype)
-        k = torch.randn(2, 2, 192, 64, generator=g, device="cuda").to(dtype)
-        before = fa.launches
-        out = fa.flash_attention_bhsd(q, k, k, causal=True)
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    cases = [(torch.float32, 64, None, "simt", 2e-5),
+             (torch.bfloat16, 64, None, "sm90", 2e-2),
+             (torch.bfloat16, 128, None, "sm90", 2e-2),    # qwen3's head dim
+             (torch.bfloat16, 256, 100, "sm90", 2e-2),     # gemma3's, local
+             (torch.float32, 256, 100, "simt", 2e-5)]
+    for dtype, d, window, kernel, tol in cases:
+        q = rand(2, 8, 192, d, dtype=dtype)
+        k = rand(2, 2, 192, d, dtype=dtype)
+        v = rand(2, 2, 192, d, dtype=dtype)
+        before, on = fa.launches, fa.launches_by_kernel[kernel]
+        out = fa.flash_attention_bhsd(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
         assert fa.launches == before + 1
-        err = (out.float() - attention_ref(q, k, k).float()).abs().max()
-        assert err.item() < tol
-    with pytest.raises(ValueError):   # head dim the kernel does not take
+        assert fa.launches_by_kernel[kernel] == on + 1
+        ref = attention_ref(q, k, v, causal=True, window=window)
+        assert (out.float() - ref.float()).abs().max().item() < tol
+    with pytest.raises(ValueError):   # head dim no kernel takes
         fa.flash_attention_bhsd(q[..., :48], k[..., :48], k[..., :48])
+
+
+@pytest.mark.gpu
+def test_gemma3_head_dim_256_prefill_on_the_card():
+    # gemma3-4b at full width (head dim 256), 6 layers (5 local with a
+    # 1024 window, 1 global), a small vocab: the flash path's prefill
+    # logits against the dense path's, same weights
+    _need_card()
+    from repro_torch.train.train_step import make_prefill_step
+    full = treg.get_config("gemma3-4b")
+    cfg = dataclasses.replace(full, n_layers=6, vocab=1024)
+    flash = dataclasses.replace(
+        cfg, attention=dataclasses.replace(cfg.attention, impl="flash"))
+    dense = dataclasses.replace(
+        cfg, attention=dataclasses.replace(cfg.attention, impl="dense"))
+    params = TM.init_params(cfg, 0, device="cuda")
+    prompt = {"tokens": torch.from_numpy(
+        tserve.make_prompts(cfg, 2, 1536, seed=1)).cuda()}
+    before = fa.launches_by_kernel["sm90"]
+    lf = make_prefill_step(flash)(params, prompt).float()
+    assert fa.launches_by_kernel["sm90"] == before + cfg.n_layers
+    ld = make_prefill_step(dense)(params, prompt).float()
+    assert torch.isfinite(lf).all()
+    assert ((lf - ld).abs().max() / ld.abs().max()).item() < 5e-2
 
 
 @pytest.mark.gpu

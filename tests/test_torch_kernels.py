@@ -16,6 +16,8 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro.kernels.flash_attention import flash_attention_bhsd as jax_flash
 from repro.kernels.ops import flash_attention as jax_flash_model
 from repro.kernels.ref import attention_ref as jax_ref
+from repro_torch.configs import registry as treg
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import attention_ref
@@ -74,6 +76,91 @@ def test_non_causal_vs_jax():
     assert _err(out, kern) < 2e-5
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [64, None])
+def test_head_dim_256_vs_jax(dtype, window):
+    # gemma3's head dim: bf16 goes to the sm90 kernel on the card, f32 to
+    # the simt kernel; the plain path here is what both are held to there
+    (q, k, v), (tq, tk, tv) = _make([(1, 4, 256, 256), (1, 2, 256, 256),
+                                     (1, 2, 256, 256)], dtype, seed=7)
+    kern = jax_flash(q, k, v, causal=True, window=window, block_q=64,
+                     block_k=64)
+    out = fa.flash_attention_bhsd(tq, tk, tv, causal=True, window=window)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    assert _err(out, kern) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    *[(torch.bfloat16, d, "sm90") for d in (64, 128, 256)],
+    *[(torch.bfloat16, d, "simt") for d in (16, 32)],
+    *[(torch.float32, d, "simt") for d in (16, 32, 64, 128, 256)],
+    (torch.float16, 128, None), (torch.bfloat16, 48, None),
+    (torch.float32, 48, None), (torch.bfloat16, 512, None),
+    (torch.float32, 512, None),
+])
+def test_route(dtype, d, kernel):
+    if kernel is None:
+        with pytest.raises(ValueError):
+            fa.route(dtype, d)
+    else:
+        assert fa.route(dtype, d) == kernel
+
+
+@pytest.mark.parametrize("arch", ["qwen3-32b", "gemma3-4b",
+                                  "phi4-mini-3.8b", "starcoder2-3b"])
+def test_dense_configs_route_to_the_tensor_core_kernel(arch):
+    cfg = treg.get_config(arch)
+    assert cfg.dtype == torch.bfloat16
+    assert fa.route(cfg.dtype, cfg.hd) == "sm90"
+
+
+@pytest.mark.parametrize("layout", ["ok", "unit_d", "stride", "base"])
+def test_tma_layout_check(layout):
+    bf16 = torch.bfloat16
+    t = torch.zeros(2, 64, 4, 128, dtype=bf16).transpose(1, 2)  # [B,S,H,d]
+    if layout == "unit_d":
+        t = torch.zeros(1, 2, 128, 64, dtype=bf16).transpose(2, 3)
+    elif layout == "stride":
+        t = torch.zeros(1, 2, 64, 65, dtype=bf16)[..., :64]    # 130-byte rows
+    elif layout == "base":
+        t = torch.zeros(2 * 64 * 64 + 1, dtype=bf16)[1:].view(1, 2, 64, 64)
+    if layout == "ok":
+        fa.check_tma(t, t[:, :1])
+    else:
+        with pytest.raises(ValueError):
+            fa.check_tma(t)
+
+
+@pytest.mark.parametrize("kernel,dtype,d", [
+    ("sm90", torch.float32, 64),      # f32 is the simt kernel's
+    ("sm90", torch.bfloat16, 32),     # no wgmma path at d 32
+    ("simt", torch.bfloat16, 48),
+    ("simt", torch.bfloat16, 32),     # takes it, but not on the CPU
+])
+def test_named_kernel_launch_rejects(kernel, dtype, d):
+    q = torch.zeros(1, 2, 64, d, dtype=dtype)
+    with pytest.raises(ValueError):
+        fa.launch(kernel, q, q, q)
+    assert fa.launches_by_kernel == {"sm90": 0, "simt": 0}
+
+
+def test_build_hash_covers_headers(tmp_path, monkeypatch):
+    for src in build.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {name: build._target(name) for name in build.sources()}
+    assert set(before) == {"flash_attention", "flash_attention_sm90"}
+    header = tmp_path / "wgmma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: build._target(name) for name in build.sources()}
+    assert all(after[n] != before[n] for n in before)
+    monkeypatch.setattr(build, "NVCC_FLAGS",
+                        build.NVCC_FLAGS + ("-I", str(tmp_path / "inc")))
+    assert build._target("flash_attention") != after["flash_attention"]
+    assert build._include_dirs(("-Ia", "-I", "b", "-O3")) == ["a", "b"]
+
+
 def test_model_layout_wrapper_ragged_seq():
     # S=100 is no tile multiple: the JAX wrapper pads, the port's
     # kernel masks the edge itself and its wrapper only transposes views
@@ -93,6 +180,7 @@ def test_fake_impl_allocates_only_the_output():
         assert out.shape == q.shape and out.dtype == torch.bfloat16
         assert out.is_contiguous()   # [B, S, H, d]: reshape is a view
     assert fa.launches == 0
+    assert fa.launches_by_kernel == {"sm90": 0, "simt": 0}
 
 
 def test_cpu_path_never_counts_a_launch():
@@ -103,6 +191,7 @@ def test_cpu_path_never_counts_a_launch():
     ops.flash_attention(tq.transpose(1, 2), tk.transpose(1, 2),
                         tv.transpose(1, 2))
     assert fa.launches == before == 0
+    assert fa.launches_by_kernel == {"sm90": 0, "simt": 0}
 
 
 @pytest.mark.parametrize("bad", ["kv_shape", "groups", "window"])
