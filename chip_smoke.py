@@ -21,7 +21,19 @@ non-zero:
    measured peak, the card's allocator requests during one prefill
    aligned with the trace's (``requests``), the device time of one warm
    prefill by kernel (``profile``), and the kernel path's logits against
-   the dense path's (``parity``).
+   the dense path's (``parity``);
+5. train   — in a child process of its own (``--train``), as a
+   training job runs: qwen3-32b at full width, depth cut to 4 layers,
+   sequences of 4096: the xMem training gate (``pick_train_batch`` over
+   batches 8, 4, 2, 1, traced on the CPU; ``train_gate``), then 3 AdamW
+   steps on the card inside the training measurement (``train``:
+   losses, step times, the estimate beside ``max_memory_reserved`` and
+   ``max_memory_allocated``, requests and segments, and the card's own
+   request stream replayed through the allocator simulation), and the
+   window's allocator requests set against the trace's
+   (``train_requests``). The training path launches neither attention
+   kernel: it trains through the chunked attention, as the JAX package
+   does.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
@@ -29,6 +41,7 @@ CUDA device is present.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import subprocess
@@ -53,6 +66,10 @@ GEMMA_WINDOW = 1024                           # its local layers' window
 # kernel -> (source, timed launches at the serving shape)
 KERNELS = {"sm90": ("src/repro_torch/csrc/flash_attention_sm90.cu", 20),
            "simt": ("src/repro_torch/csrc/flash_attention.cu", 3)}
+TRAIN_LAYERS = 4
+TRAIN_SEQ = 4096            # TRAIN_4K's sequence length
+TRAIN_CANDIDATES = (8, 4, 2, 1)
+TRAIN_STEPS = 3             # the estimator composes 3 iterations
 # |flash - dense| / max|dense| on the batch-1 prefill logits, bf16 model:
 # both paths do f32 attention math from the same bf16 q/k/v and round
 # the output to bf16, so they differ by output roundings carried
@@ -70,6 +87,19 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def device_memory() -> dict:
+    """The card's memory now: what ``cudaMemGetInfo`` reports free, what
+    the caching allocator holds (reserved) and lends out (allocated),
+    and what neither accounts for (the CUDA context, libraries' own
+    buffers)."""
+    import torch
+    free, total = torch.cuda.mem_get_info()
+    reserved = torch.cuda.memory_reserved()
+    return {"free": free, "reserved": reserved,
+            "allocated": torch.cuda.memory_allocated(),
+            "outside_allocator": total - free - reserved}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -138,7 +168,7 @@ def phase_device() -> dict:
             "count": torch.cuda.device_count(),
             "total_memory": int(props.total_memory),
             "torch": torch.__version__, "cuda": torch.version.cuda,
-            "python": sys.version.split()[0]}
+            "python": sys.version.split()[0], "memory": device_memory()}
     emit("device", **info)
     return info
 
@@ -290,7 +320,7 @@ def phase_kernels() -> list[dict]:
          flops=serving_bound["flops"], bytes=serving_bound["bytes"],
          rows=rows, tflops={r["name"]: serving_bound["flops"] / r["ms"] / 1e9
                             for r in rows},
-         gemma3=gemma)
+         gemma3=gemma, memory=device_memory())
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return rows
@@ -389,7 +419,8 @@ def phase_main(rows: list[dict]) -> None:
                            for r in range(REQUESTS)],
          prefill=vs(res.peaks["prefill"], pre_est),
          decode=vs(res.peaks["decode"], dec_est),
-         finite_logits=True, first_tokens=toks[-1][:2, :8].tolist())
+         finite_logits=True, first_tokens=toks[-1][:2, :8].tolist(),
+         memory=device_memory())
     del res
     torch.cuda.empty_cache()
     phase_requests(cfg, params, batch)
@@ -405,7 +436,8 @@ def phase_main(rows: list[dict]) -> None:
     rel = ((lf - ld).abs().max() / ld.abs().max()).item()
     same = bool((lf.argmax(-1) == ld.argmax(-1)).all().item())
     emit("parity", flash_vs_dense_rel=rel, tol=LOGITS_REL_TOL,
-         same_argmax=same, finite=bool(torch.isfinite(lf).all().item()))
+         same_argmax=same, finite=bool(torch.isfinite(lf).all().item()),
+         memory=device_memory())
     if not rel < LOGITS_REL_TOL:
         raise AssertionError(f"flash vs dense logits: rel {rel}")
 
@@ -449,7 +481,8 @@ def phase_requests(cfg, params, batch: int) -> None:
          card_only=len(card_only), trace_only=len(trace_only),
          card_only_bytes=sum(s for s, _ in card_only),
          trace_only_bytes=sum(s for s, _ in trace_only),
-         card_only_first=card_only[:12], trace_only_first=trace_only[:12])
+         card_only_first=card_only[:12], trace_only_first=trace_only[:12],
+         memory=device_memory())
 
 
 def phase_profile(cfg, params, batch: int) -> None:
@@ -492,7 +525,121 @@ def phase_profile(cfg, params, batch: int) -> None:
          busy_share=device_ms / wall_ms if wall_ms else None,
          by_bucket_ms=buckets,
          top=[{"kernel": k[:90], "ms": ms, "count": n}
-              for k, (ms, n) in top])
+              for k, (ms, n) in top], memory=device_memory())
+
+
+def phase_train() -> None:
+    """The training path, in a process of its own as a training job is:
+    gate on the CPU, then steps on the card."""
+    import math
+
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import smoke_shape
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as srv
+    from repro_torch.launch import train as trn
+    from repro_torch.models import model as M
+    from repro_torch.train import TrainPolicy
+
+    memory = device_memory()
+    cfg = dataclasses.replace(get_config("qwen3-32b"), n_layers=TRAIN_LAYERS)
+    policy = TrainPolicy()          # AdamW, clip_norm 1.0, 1 microbatch
+    capacity = srv.device_capacity()
+    batch, gate = trn.pick_train_batch(cfg, policy, TRAIN_SEQ, capacity,
+                                       TRAIN_CANDIDATES)
+    emit("train_gate", config=cfg.name, n_layers=cfg.n_layers,
+         seq_len=TRAIN_SEQ, optimizer=policy.optimizer,
+         clip_norm=policy.clip_norm, microbatches=policy.microbatches,
+         capacity=capacity, seconds=gate["seconds"],
+         trace_cache=gate["trace_cache"], candidates=gate["candidates"],
+         batch=batch, memory=memory)
+    if batch is None:
+        raise AssertionError(f"no training batch fits: {gate['candidates']}")
+    rep = gate["report"]
+    shape = smoke_shape(TRAIN_SEQ, batch)
+    params = M.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    got = trn.train_loop(cfg, shape, policy, steps=TRAIN_STEPS,
+                         device="cuda", params=params, history=True)
+    launches = dict(fa.launches_by_kernel)
+    run = got.out
+    if not all(math.isfinite(x) for x in run.losses):
+        raise AssertionError(f"non-finite training loss {run.losses}")
+    comp = rep.composition      # requests of the composed iterations
+    traced = collections.Counter()
+    for blocks, n in ((comp.prefix, 1), (comp.cycle, comp.n_cycles),
+                      (comp.suffix, 1)):
+        for b in blocks:
+            if b.op != "init":
+                traced[b.size] += n
+    emit("train", batch=batch, seq_len=TRAIN_SEQ, steps=TRAIN_STEPS,
+         kernel_launches=launches, losses=run.losses,
+         step_ms=[x * 1e3 for x in run.step_s],
+         tokens_per_s=batch * TRAIN_SEQ * TRAIN_STEPS / sum(run.step_s),
+         estimate=rep.peak_bytes, tensor_estimate=rep.peak_tensor_bytes,
+         persistent=rep.persistent_bytes,
+         measured_reserved=got.reserved, measured_allocated=got.allocated,
+         rel_err_reserved=(rep.peak_bytes - got.reserved) / got.reserved,
+         rel_err_allocated=(rep.peak_tensor_bytes - got.allocated)
+         / got.allocated,
+         card_allocs=got.n_allocs, trace_allocs=sum(traced.values()),
+         card_alloc_retries=got.n_alloc_retries,
+         card_stream_sim=replay_card_stream(
+             got.events, pytree.tree_leaves(params), capacity),
+         card_segments_created=got.n_segments_created,
+         segments_mib=sorted(round(x / 2**20, 1) for x in got.segment_sizes),
+         sim_segments_mib=sorted(round(s["size"] / 2**20, 1)
+                                 for s in rep.sim.segments),
+         phase_peaks=rep.breakdown["phase_peaks"], memory=device_memory())
+    emit_train_requests(got.allocs, traced)
+
+
+def replay_card_stream(events, resident, capacity: int) -> dict:
+    """The card's own allocator requests of a measured window, replayed
+    through the port's allocator simulation at ``capacity`` after the
+    ``resident`` tensors (allocated first, in order, as the window found
+    them): the simulation's error on the card's stream, apart from the
+    trace's."""
+    from repro_torch.core.allocator import (CUDA_CACHING, CachingAllocatorSim,
+                                            DeviceAllocatorSim)
+    sim = CachingAllocatorSim(CUDA_CACHING, DeviceAllocatorSim(
+        capacity, CUDA_CACHING.device_page))
+    for t in resident:
+        sim.malloc(t.untyped_storage().nbytes())
+    handles = {}
+    for action, addr, size in events:
+        if action == "alloc":
+            handles[addr] = sim.malloc(size)
+        elif addr in handles:
+            sim.free(handles.pop(addr))
+    return {"reserved": sim.peak_reserved, "allocated": sim.peak_allocated}
+
+
+def emit_train_requests(card_allocs, traced) -> None:
+    """The request sizes the card made in the measured window that the
+    composed trace did not, and the reverse (multisets of sizes: a
+    window is too long to align), with where the card made them."""
+    card = collections.Counter(size for size, _ in card_allocs)
+    where = {}
+    for size, at in card_allocs:
+        where.setdefault(size, at)
+
+    def top(diff, with_where):
+        rows = sorted(diff.items(), key=lambda kv: -kv[0] * kv[1])[:12]
+        return [[size, n, where.get(size, "?")] if with_where
+                else [size, n] for size, n in rows]
+    card_only, trace_only = card - traced, traced - card
+    emit("train_requests", card=sum(card.values()),
+         trace=sum(traced.values()),
+         card_only=sum(card_only.values()),
+         trace_only=sum(trace_only.values()),
+         card_only_bytes=sum(k * n for k, n in card_only.items()),
+         trace_only_bytes=sum(k * n for k, n in trace_only.items()),
+         card_only_top=top(card_only, True),
+         trace_only_top=top(trace_only, False))
 
 
 def main() -> int:
@@ -502,10 +649,19 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401 — fails outside a checkout
+    if sys.argv[1:] == ["--train"]:
+        phase_train()
+        return 0
     info = phase_device()
     phase_build()
     rows = phase_kernels()
     phase_main(rows)
+    # the training job gets a process of its own, as it would: a fresh
+    # allocator whose first iteration makes cuBLAS's workspaces; this
+    # process keeps only its context and workspace on the card
+    torch.cuda.empty_cache()
+    subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                    "--train"], check=True, timeout=900)
     print(json.dumps({"kernels": rows}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

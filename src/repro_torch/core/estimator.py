@@ -1,31 +1,54 @@
-"""xMem estimator for PyTorch steps — the serving slice of
-``repro.core.estimator``.
+"""xMem estimator for PyTorch steps (port of ``repro.core.estimator``).
 
-``XMemEstimator.estimate_serving`` traces one serving step (prefill or
-decode) on the CPU under fake tensors (``tracer.py``), marks the params
-and the KV cache persistent, and replays the lifecycles through the
-``CUDACachingAllocator`` simulation: the peak reserved bytes are the
-estimate the serving gate budgets, and ``torch.cuda.max_memory_reserved``
-on the card is its ground truth (``baselines/directprobe.py``).
+``XMemEstimator.estimate_training`` is the paper's workflow:
 
-Not ported yet (ROADMAP Queue 1): the trace cache, the training
-estimate (N-iteration composition, gradient release, optimizer state)
-and the request-stream estimate.
+1. trace the job's phases on the CPU under fake tensors
+   (``tracer.py``): forward+backward, optimizer init and update; the
+   phases are cached (``cache.py``), so a gate's batch candidates trace
+   the batch-independent init and update once;
+2. classify lifecycles (``analyzer.py``);
+3. compose N iterations on one timeline (``_compose_periodic``):
+   optimizer state materializes at the first update and persists, which
+   is why the paper analyzes >= 2 iterations (we default to 3 like the
+   paper); iterations 2..N-2 are a shifted template;
+4. orchestrate lifecycles (persistence, gradient release, batches),
+   and, in the GPU preset, add cuBLAS's two workspaces to the first
+   iteration;
+5. replay through the CUDA caching allocator simulation -> peak
+   reserved bytes, the estimate, and the OOM verdict.
+
+``estimate_serving`` is the single-phase estimate of a prefill or
+decode step with a persistent KV cache.
+
+Not ported (ROADMAP Queue 1): the frozen seed pipeline
+(``fastpath=False``), host offload, collectives and sharding, and the
+request-stream estimate.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Sequence
+from typing import Any, Callable, Sequence
 
+import torch
 from torch.utils import _pytree as pytree
 
 from ..obs import spans as obs_spans
 from .allocator import AllocatorPolicy, CUDA_CACHING
-from .events import BlockKind, BlockLifecycle, Phase, Trace
+from .analyzer import classify_blocks
+from .cache import BlockInfo, TraceCache, TracedPhase, trace_key
+from .events import (BlockKind, BlockLifecycle, PeriodicBlocks, Phase,
+                     periodic_breakdown_peaks_fast, reduced_for_breakdown)
 from .orchestrator import MemoryOrchestrator, OrchestratorPolicy
 from .simulator import MemorySimulator, SimResult
 from .tracer import trace_fn
+
+#: bytes of the workspace cuBLAS gets from the caching allocator for each
+#: (thread, stream) handle at its first matmul, held for good (torch 2.11
+#: on an H100; the first matmul of a process adds 33,554,432 B)
+CUBLAS_WORKSPACE_BYTES = 32 << 20
+_MATMULS = frozenset({"aten::mm", "aten::addmm", "aten::bmm",
+                      "aten::baddbmm"})
 
 
 def flatten_kinds(args_with_kinds: Sequence[tuple]
@@ -40,53 +63,84 @@ def flatten_kinds(args_with_kinds: Sequence[tuple]
     return flat_args, kinds, scopes
 
 
-@dataclasses.dataclass(frozen=True)
-class TracedPhase:
-    """One traced phase: its event stream and block lifecycles."""
-    trace: Trace
-    lifecycles: tuple[BlockLifecycle, ...]
+def _to_meta(tree):
+    """A step's (fake) outputs as ``meta`` tensors: shapes and dtypes
+    for the next phase's trace, holding no fake-tensor mode alive."""
+    return pytree.tree_map(
+        lambda t: torch.empty(tuple(t.shape), dtype=t.dtype, device="meta")
+        if isinstance(t, torch.Tensor) else t, tree)
 
 
 @dataclasses.dataclass
 class EstimateReport:
     peak_bytes: int               # reserved segments — THE estimate
     peak_tensor_bytes: int        # live-tensor peak (naive lower bound)
-    persistent_bytes: int         # params + cache + pinned outputs
+    persistent_bytes: int         # params + opt state (+ cache, serving)
     oom: bool
     sim: SimResult
-    breakdown: dict               # per-kind summary
+    breakdown: dict               # per-kind / per-phase summary
     wall_time_s: float
     num_events: int
+    cache_stats: dict = dataclasses.field(default_factory=dict)
+    # the composed timeline and whether ``sim`` replayed it unbounded
+    # (``min_feasible_capacity`` reuses both)
+    composition: Any = dataclasses.field(default=None, repr=False)
+    sim_unbounded: bool = False
 
     def fits(self, capacity: int) -> bool:
         return self.peak_bytes <= capacity
 
 
 class XMemEstimator:
-    """Peak-memory estimator; ``for_torch_gpu()`` is the preset the
-    port's serving gate uses (CUDACachingAllocator simulation, eager
-    semantics: no fusion folding, no donation)."""
+    """Peak-memory estimator; ``for_torch_gpu()`` is the port's preset."""
 
     def __init__(self,
                  allocator_policy: AllocatorPolicy = CUDA_CACHING,
                  orchestrator_policy: OrchestratorPolicy | None = None,
-                 capacity: int = 1 << 62):
+                 iterations: int = 3,
+                 capacity: int = 1 << 62,
+                 trace_cache: TraceCache | None = None,
+                 cublas_workspace: int = 0):
         self.allocator_policy = allocator_policy
+        self.cublas_workspace = cublas_workspace
         self.orchestrator = MemoryOrchestrator(
             orchestrator_policy or OrchestratorPolicy())
+        self.iterations = iterations
         self.capacity = capacity
+        # explicit None check: an empty TraceCache is falsy (__len__)
+        self.trace_cache = TraceCache() if trace_cache is None \
+            else trace_cache
 
     @classmethod
     def for_torch_gpu(cls, **kw) -> "XMemEstimator":
+        """The CUDA caching allocator simulation with eager semantics:
+        no fusion folding, no donation, and every gradient alive until
+        the in-place update that reads it has finished
+        (``grad_release="after_update"``). No synthetic f32 copies of
+        the gradients are injected (``optimizer_upcast_coexist``): the
+        traced update records its real f32 working copies, leaf by
+        leaf, and the JAX preset's all-gradients-at-once copies would
+        add twice the gradient bytes the card never allocates. A training
+        job's first iteration allocates cuBLAS's workspaces."""
         kw.setdefault("allocator_policy", CUDA_CACHING)
+        kw.setdefault("cublas_workspace", CUBLAS_WORKSPACE_BYTES)
         kw.setdefault("orchestrator_policy", OrchestratorPolicy(
-            grad_release="at_update", donate_params=False,
-            donate_opt_state=False, fusion_folding=False))
+            grad_release="after_update", donate_params=False,
+            donate_opt_state=False, fusion_folding=False,
+            optimizer_upcast_coexist=False))
         return cls(**kw)
 
-    def _trace_phase(self, fn, args_with_kinds, phase) -> TracedPhase:
+    # -- phase tracing (cached) -------------------------------------------
+    def _trace_phase(self, fn, args_with_kinds, phase,
+                     out_kind_fn: Callable | None = None, tag: str = "",
+                     grad: bool = False) -> TracedPhase:
         flat, kinds, scopes = flatten_kinds(args_with_kinds)
         specs = [pytree.tree_structure(t) for t, _, _ in args_with_kinds]
+        cache = self.trace_cache
+        key = trace_key(fn, tag, flat, tuple(specs), kinds, phase)
+        hit = cache.get(fn, key)
+        if hit is not None:
+            return hit
         counts = [spec.num_leaves for spec in specs]
 
         def flat_fn(*leaves):
@@ -96,10 +150,308 @@ class XMemEstimator:
                 i += n
             return fn(*rebuilt)
 
-        with obs_spans.span("estimator.trace", phase=str(phase)):
-            trace, tr, _ = trace_fn(flat_fn, *flat, arg_kinds=kinds,
-                                    arg_scopes=scopes, phase=phase)
-        return TracedPhase(trace=trace, lifecycles=tuple(tr.lifecycles()))
+        with obs_spans.span("estimator.trace", phase=str(phase), tag=tag):
+            trace, tr, out = trace_fn(flat_fn, *flat, arg_kinds=kinds,
+                                      arg_scopes=scopes, phase=phase,
+                                      grad=grad, out_kind_fn=out_kind_fn)
+        entry = TracedPhase(
+            trace=trace, lifecycles=tuple(tr.lifecycles()),
+            input_blocks=tuple(BlockInfo(b.bid, b.size, b.kind, b.shape)
+                               for b in tr.input_blocks),
+            output_blocks=tuple(BlockInfo(b.bid, b.size, b.kind, b.shape)
+                                for b in tr.output_blocks),
+            out_shape=_to_meta(out), arg_leaf_counts=tuple(counts))
+        cache.put(fn, key, entry)
+        return entry
+
+    # -- periodic composition ---------------------------------------------
+    def _compose_periodic(self, fwd: TracedPhase, upd: TracedPhase | None,
+                          init: TracedPhase | None
+                          ) -> tuple[PeriodicBlocks, dict]:
+        """Stitch phase traces into an N-iteration timeline in O(blocks).
+
+        Iterations {0, 1, N-1} are materialized concretely; iterations
+        2..N-2 are exact shifted copies of iteration 1 represented by the
+        (cycle, n_cycles, period) template. The last iteration stays
+        concrete because gradient release has no next iteration to free
+        into.
+        """
+        N = self.iterations
+        cursor = 0
+        next_bid = [0]
+        update_start: dict[int, int] = {}
+        bwd_start: dict[int, int] = {}
+        iteration_ends: dict[int, int] = {}
+
+        def fresh_bid() -> int:
+            next_bid[0] += 1
+            return next_bid[0]
+
+        def place(entry: TracedPhase, it: int, phase: Phase, target: list,
+                  output_kind: BlockKind | None = None) -> None:
+            nonlocal cursor
+            input_bids = {b.bid for b in entry.input_blocks}
+            output_bids = ({b.bid for b in entry.output_blocks}
+                           if output_kind is not None else ())
+            cur = cursor
+            bid = next_bid[0]
+            append = target.append
+            for lc in entry.lifecycles:
+                lcb = lc.block_id
+                if lcb in input_bids:
+                    continue
+                ft = lc.free_t
+                bid += 1
+                append(BlockLifecycle(
+                    bid, lc.size, lc.alloc_t + cur,
+                    None if ft is None else ft + cur, it, phase, lc.op,
+                    lc.scope,
+                    output_kind if lcb in output_bids else lc.block_kind,
+                    lc.shard_factor, lc.shape))
+            next_bid[0] = bid
+            cursor = cur + len(entry.trace.events) + 1
+
+        def one_iteration(it: int, target: list, with_init: bool) -> None:
+            nonlocal cursor
+            for b in fwd.input_blocks:
+                if b.kind is BlockKind.INPUT and b.size > 0:
+                    target.append(BlockLifecycle(
+                        fresh_bid(), b.size, cursor, None, it, Phase.DATA,
+                        "host_to_device", "batch", BlockKind.INPUT,
+                        1.0, b.shape))
+            cursor += 1
+            bwd_start[it] = cursor
+            place(fwd, it, Phase.FORWARD_BACKWARD, target)
+            update_start[it] = cursor
+            if with_init and init is not None:
+                place(init, it, Phase.OPTIMIZER, target,
+                      output_kind=BlockKind.OPT_STATE)
+            if upd is not None:
+                place(upd, it, Phase.OPTIMIZER, target,
+                      output_kind=BlockKind.OUTPUT)
+            iteration_ends[it] = cursor
+
+        prefix: list[BlockLifecycle] = []
+        cycle: list[BlockLifecycle] = []
+        suffix: list[BlockLifecycle] = []
+
+        # t=0: persistent parameter blocks (one per leaf, from fwd inputs)
+        for b in fwd.input_blocks:
+            if b.kind is BlockKind.PARAM and b.size > 0:
+                prefix.append(BlockLifecycle(
+                    fresh_bid(), b.size, 0, None, 0, Phase.INIT,
+                    "init", "params", BlockKind.PARAM, 1.0, b.shape))
+        cursor += 1
+
+        one_iteration(0, prefix, with_init=True)
+        period = 0
+        cycle_start = cursor
+        if N >= 3:
+            one_iteration(1, cycle, with_init=False)
+            period = cursor - cycle_start
+            # iterations 2..N-2 are implicit template replicas; synthetic
+            # next-iteration keys let gradient and output release resolve
+            # the template's frees one period ahead
+            update_start[2] = update_start[1] + period
+            iteration_ends[2] = iteration_ends[1] + period
+            cursor = cycle_start + (N - 2) * period
+        if N >= 2:
+            one_iteration(N - 1, suffix, with_init=False)
+
+        n_cycles = max(N - 2, 0)
+        meta = dict(iteration_ends=iteration_ends,
+                    update_start=update_start, bwd_start=bwd_start,
+                    horizon=cursor + 2, cycle_start=cycle_start,
+                    period=period, n_cycles=n_cycles)
+        pb = PeriodicBlocks(prefix, cycle, n_cycles, period, suffix,
+                            meta={"cycle_start": cycle_start})
+        return pb, meta
+
+    def _cublas_workspaces(self, first_iteration) -> list[BlockLifecycle]:
+        """cuBLAS's workspaces in a job that has a process of its own: one
+        for each thread's handle, from its first matmul on: the job's
+        thread at the first forward matmul, the autograd engine's thread
+        at the first backward one."""
+        out = []
+        for scope in ("", "backward"):
+            first = min((b.alloc_t for b in first_iteration
+                         if b.op in _MATMULS and b.scope == scope),
+                        default=None)
+            if first is not None:
+                out.append(BlockLifecycle(
+                    -200_000 - len(out), self.cublas_workspace, first, None,
+                    0, Phase.FORWARD_BACKWARD, "cublas_workspace", scope,
+                    BlockKind.TEMP))
+        return out
+
+    # -- public API ---------------------------------------------------------
+    def estimate_training(self,
+                          fwd_bwd_fn: Callable,     # (params, batch) -> (loss, grads)
+                          params, batch,
+                          update_fn: Callable | None = None,  # (params, grads, opt_state) -> (params, opt_state)
+                          opt_init_fn: Callable | None = None,  # params -> opt_state
+                          capacity: int | None = None) -> EstimateReport:
+        """Peak memory of ``iterations`` training steps. ``params`` and
+        ``batch`` are pytrees of tensors of any device (``meta`` ones
+        allocate nothing): only shapes and dtypes are read."""
+        t0 = time.perf_counter()
+        cache = self.trace_cache
+        h0, m0 = cache.hits, cache.misses
+        fwd, upd, init = self.trace_phases(fwd_bwd_fn, params, batch,
+                                           update_fn, opt_init_fn)
+        cache_stats = {"hits": cache.hits - h0, "misses": cache.misses - m0,
+                       "global": cache.stats()}
+        return self.estimate_from_phases(fwd, upd, init, capacity=capacity,
+                                         t0=t0, cache_stats=cache_stats)
+
+    def trace_phases(self, fwd_bwd_fn, params, batch, update_fn=None,
+                     opt_init_fn=None
+                     ) -> tuple[TracedPhase, TracedPhase | None,
+                                TracedPhase | None]:
+        """Stage 1: per-phase CPU traces (cached). The forward+backward
+        runs with grad mode on; its outputs are the loss (``OUTPUT``)
+        and the gradients (``GRAD``)."""
+        def fwd_out_kinds(out):
+            n_out = len(pytree.tree_leaves(out))
+            n_loss = len(pytree.tree_leaves(out[0])) \
+                if isinstance(out, tuple) else 1
+            return [BlockKind.OUTPUT] * n_loss + \
+                   [BlockKind.GRAD] * (n_out - n_loss)
+
+        fwd = self._trace_phase(
+            fwd_bwd_fn,
+            [(params, BlockKind.PARAM, "params"),
+             (batch, BlockKind.INPUT, "batch")],
+            Phase.FORWARD_BACKWARD, out_kind_fn=fwd_out_kinds, tag="fwd",
+            grad=True)
+        init = upd = None
+        opt_state = None
+        if opt_init_fn is not None:
+            init = self._trace_phase(
+                opt_init_fn, [(params, BlockKind.PARAM, "params")],
+                Phase.OPTIMIZER,
+                out_kind_fn=lambda s: [BlockKind.OPT_STATE] * len(
+                    pytree.tree_leaves(s)),
+                tag="init")
+            opt_state = init.out_shape
+        if update_fn is not None:
+            out = fwd.out_shape
+            grads = out[1] if isinstance(out, tuple) else out
+            upd_args = [(params, BlockKind.PARAM, "params"),
+                        (grads, BlockKind.GRAD, "grads")]
+            if opt_state is not None:
+                upd_args.append((opt_state, BlockKind.OPT_STATE, "opt_state"))
+            upd = self._trace_phase(update_fn, upd_args, Phase.OPTIMIZER,
+                                    tag="upd")
+        return fwd, upd, init
+
+    def estimate_from_phases(self, fwd: TracedPhase,
+                             upd: TracedPhase | None = None,
+                             init: TracedPhase | None = None, *,
+                             capacity: int | None = None,
+                             t0: float | None = None,
+                             cache_stats: dict | None = None
+                             ) -> EstimateReport:
+        """Stages 2-5 (compose, classify, orchestrate, simulate) from
+        already-traced phases."""
+        if t0 is None:
+            t0 = time.perf_counter()
+        policy_before = self.orchestrator.policy
+        try:
+            return self._estimate_from_phases(fwd, upd, init, capacity, t0,
+                                              cache_stats or {})
+        finally:
+            self.orchestrator.policy = policy_before
+
+    def _estimate_from_phases(self, fwd, upd, init, capacity, t0,
+                              cache_stats) -> EstimateReport:
+        policy = self.orchestrator.policy
+        if policy.offload is not None and policy.offload.enabled:
+            raise NotImplementedError(
+                "host offload is not ported (ROADMAP Queue 1)")
+        # --- stage 2+3: analyze & compose iterations (periodic) ---
+        pb, meta = self._compose_periodic(fwd, upd, init)
+        concrete = pb.prefix + pb.cycle + pb.suffix
+        param_sizes = frozenset(
+            b.size for b in fwd.input_blocks if b.kind is BlockKind.PARAM)
+        concrete = classify_blocks(concrete, param_sizes)
+        if self.cublas_workspace:
+            concrete += self._cublas_workspaces(pb.prefix)
+
+        # --- stage 4: orchestrate ---
+        # The JAX package resolves "auto" by a taint pass over the update
+        # jaxpr (per-leaf updates fuse into the backward under XLA). An
+        # eager step has no such fusion: every gradient lives until the
+        # update that reads it has finished.
+        if policy.grad_release == "auto":
+            self.orchestrator.policy = dataclasses.replace(
+                policy, grad_release="after_update")
+        concrete = self.orchestrator.run(
+            concrete,
+            iteration_ends=meta["iteration_ends"],
+            update_start=meta["update_start"],
+            next_bwd_start=meta["update_start"],
+            num_iterations=self.iterations)
+
+        # --- stage 5: simulate ---
+        num_events = (len(fwd.trace.events)
+                      + (len(upd.trace.events) if upd else 0)
+                      + (len(init.trace.events) if init else 0))
+        N = self.iterations
+        prefix = [b for b in concrete if b.iteration == 0]
+        cyc = [b for b in concrete if b.iteration == 1] if N >= 3 else []
+        suffix = ([b for b in concrete if b.iteration == N - 1]
+                  if N >= 2 else [])
+        pb = PeriodicBlocks(prefix, cyc, pb.n_cycles, pb.period, suffix,
+                            meta=pb.meta)
+        sim_runner = MemorySimulator(self.allocator_policy,
+                                     capacity or self.capacity,
+                                     engine="columnar")
+        with obs_spans.span("estimator.replay", engine="columnar",
+                            num_blocks=pb.num_blocks):
+            sim = sim_runner.replay_spaces(pb)
+
+        def is_cycle(b):
+            return N >= 3 and b.iteration == 1
+        persistent = sum(
+            b.sharded_size * (pb.n_cycles if is_cycle(b) else 1)
+            for b in concrete
+            if b.free_t is None and b.block_kind in (
+                BlockKind.PARAM, BlockKind.OPT_STATE))
+        liveness_peak, phase_pk = periodic_breakdown_peaks_fast(
+            reduced_for_breakdown(pb))
+        return EstimateReport(
+            peak_bytes=sim.peak_reserved,
+            peak_tensor_bytes=sim.peak_allocated,
+            persistent_bytes=persistent,
+            oom=sim.oom,
+            sim=sim,
+            breakdown={"phase_peaks": phase_pk,
+                       "num_blocks": pb.num_blocks,
+                       "liveness_peak": liveness_peak},
+            wall_time_s=time.perf_counter() - t0,
+            num_events=num_events,
+            cache_stats=cache_stats,
+            composition=pb,
+            sim_unbounded=(capacity or self.capacity) >= (1 << 62))
+
+    # -- capacity probing ---------------------------------------------------
+    def min_feasible_capacity(self, fwd_bwd_fn, params, batch,
+                              update_fn=None, opt_init_fn=None,
+                              report: EstimateReport | None = None) -> int:
+        """Smallest device capacity the job fits in, from one instrumented
+        replay (plus bounded verification) — see
+        ``MemorySimulator.min_feasible_capacity``. Passing an existing
+        ``report`` reuses its composition and unbounded replay."""
+        if report is None or report.composition is None:
+            report = self.estimate_training(
+                fwd_bwd_fn, params, batch, update_fn=update_fn,
+                opt_init_fn=opt_init_fn)
+        probe = (report.sim if report.sim_unbounded and not report.sim.oom
+                 else None)
+        return MemorySimulator(self.allocator_policy, 1 << 62,
+                               engine="columnar").min_feasible_capacity(
+            report.composition, probe=probe)
 
     def estimate_serving(self, step_fn: Callable, params, cache, batch,
                          capacity: int | None = None) -> EstimateReport:
@@ -111,7 +463,7 @@ class XMemEstimator:
             [(params, BlockKind.PARAM, "params"),
              (cache, BlockKind.CACHE, "cache"),
              (batch, BlockKind.INPUT, "batch")],
-            Phase.DECODE)
+            Phase.DECODE, tag="serve")
         blocks = list(entry.lifecycles)
         blocks = self.orchestrator.mark_persistent(
             blocks, kinds=(BlockKind.PARAM, BlockKind.CACHE))

@@ -100,6 +100,9 @@ class OrchestratorPolicy:
     #                  clipping) — see estimator.update_grad_coupling.
     # "auto"         - estimator picks eager_fused vs at_update by taint
     #                  analysis of the update jaxpr.
+    # "after_update" - grads live through the optimizer phase and die
+    #                  when the step ends (eager PyTorch: the update
+    #                  reads them leaf by leaf; the port's default).
     grad_release: str = "auto"
     eager_fuse_window: int = 6           # events a fused grad survives
     donate_params: bool = True
@@ -187,7 +190,8 @@ class MemoryOrchestrator:
 
     def release_gradients(self, blocks: list[BlockLifecycle],
                           update_start: dict[int, int],
-                          next_bwd_start: dict[int, int]
+                          next_bwd_start: dict[int, int],
+                          iteration_ends: dict[int, int] | None = None
                           ) -> list[BlockLifecycle]:
         """Apply grad_release (the paper's zero_grad-placement semantics)."""
         out = []
@@ -212,6 +216,8 @@ class MemoryOrchestrator:
                             t = min(t, us)
                 elif mode == "at_update":
                     t = update_start.get(b.iteration)
+                elif mode == "after_update":
+                    t = (iteration_ends or {}).get(b.iteration)
                 else:  # at_next_iter: grads survive into the next iteration
                     t = next_bwd_start.get(b.iteration + 1)
                 b = dataclasses.replace(b, free_t=t)  # None -> persistent
@@ -549,7 +555,8 @@ class MemoryOrchestrator:
             blocks = self.batch_per_iteration(blocks, iteration_ends)
         if update_start is not None:
             blocks = self.release_gradients(blocks, update_start,
-                                            next_bwd_start or {})
+                                            next_bwd_start or {},
+                                            iteration_ends)
             if iteration_ends:
                 blocks = self.inject_optimizer_upcasts(
                     blocks, update_start, iteration_ends)
@@ -637,6 +644,8 @@ class MemoryOrchestrator:
                                 t = min(t, us)
                     elif grad_mode == "at_update":
                         t = update_start_d.get(b.iteration)
+                    elif grad_mode == "after_update":
+                        t = iteration_ends.get(b.iteration)
                     else:  # at_next_iter
                         t = next_bwd.get(b.iteration + 1)
                     b = dataclasses.replace(b, free_t=t)

@@ -11,15 +11,30 @@ stream as the ops run:
 * a **free** when that storage dies: a ``weakref.finalize`` on the fake
   storage fires when the last tensor using it goes away, which is when
   the CUDA caching allocator would get the block back;
-* views (``view``, ``t``, ``transpose``, ``select``, ``slice``) and
-  in-place ops (``copy_``, ``index_put_``, ``add_``) return a storage
-  the tracer already knows, and allocate nothing.
+* views (``view``, ``t``, ``transpose``, ``select``, ``slice``,
+  ``detach``) and in-place ops (``copy_``, ``index_put_``, ``add_``)
+  return a storage the tracer already knows, and allocate nothing;
+* the buffers some CUDA kernels allocate and free inside one op, which
+  the fake kernels do not (``_KERNEL_TEMPS``), as short-lived blocks
+  after the op's outputs.
 
-The inputs (params, cache, batch) are registered before the step runs,
-pinned and kinded (PARAM / CACHE / INPUT); the step's outputs are pinned
-afterwards, as the JAX package's tracer does. The columns are the same
+The inputs (params, cache, batch, grads, optimizer state) are
+registered before the step runs, pinned and kinded; the step's outputs
+are pinned afterwards, as the JAX package's tracer does, and both are
+kept as the phase's input and output blocks, which the estimator's
+N-iteration composition places by. The columns are the same
 ``ColumnarTrace`` columns, so the rest of the pipeline (lifecycles,
 orchestrator, allocator replay) is shared code.
+
+Training steps trace with grad mode on (``trace_fn(grad=True)``). The
+autograd engine runs the backward under the same mode stack, so the
+backward's ops (recomputed checkpointed forwards included) are recorded
+too; blocks allocated while the engine runs
+(``torch._C._current_graph_task_id() != -1``) get the scope
+``backward``, which ``analyzer.classify_blocks`` reads as the JAX
+package's ``transpose(...)`` scopes. Saved activations are freed when
+``torch.autograd.grad`` releases the graph, which gives them their
+backward lifetimes.
 
 Nothing is allocated and no device is touched: a full-width step traces
 in seconds on a machine with no GPU. The fake tensors live on the CPU
@@ -41,6 +56,32 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from .events import (KIND_CODE, PHASE_CODE, BlockKind, BlockLifecycle,
                      ColumnarTrace, Phase, StringInterner, Trace)
+
+
+def _softmax_backward_temps(grad, output, dim, input_dtype):
+    """CUDA's softmax backward computes ``tmp = grad * output`` (laid out
+    like ``grad``) and makes ``tmp`` contiguous when it is not."""
+    n = output.numel() * torch.promote_types(grad.dtype,
+                                             output.dtype).itemsize
+    return [n] if grad.is_contiguous() else [n, n]
+
+
+def _bool_sum_temps(x, *args, **kwargs):
+    """CUDA's sum of a bool tensor casts it to int64 first."""
+    return [x.numel() * 8] if x.dtype == torch.bool else []
+
+
+# Device buffers that torch's CUDA kernels allocate inside an op and free
+# before it returns: the fake kernels allocate only the outputs, so the
+# tracer adds these after them. Each rule gives the buffers' bytes from
+# the op's arguments. Read off the card's allocator history (torch
+# 2.11); not modeled: the staging buffers of split reductions, which
+# depend on the launch configuration.
+_KERNEL_TEMPS = {
+    torch.ops.aten._softmax_backward_data.default: _softmax_backward_temps,
+    torch.ops.aten.sum.default: _bool_sum_temps,
+    torch.ops.aten.sum.dim_IntList: _bool_sum_temps,
+}
 
 
 @dataclasses.dataclass
@@ -77,6 +118,7 @@ class TorchMemoryTracer(TorchDispatchMode):
         self._shapes = StringInterner([None])
         self.t = 0
         self.blocks: dict[int, _Block] = {}
+        self.input_blocks: list[_Block] = []
         self.output_blocks: list[_Block] = []
         # storage identity (StorageImpl address) -> live block
         self._live: dict[int, _Block] = {}
@@ -126,11 +168,14 @@ class TorchMemoryTracer(TorchDispatchMode):
         """A step input: pinned, kinded, alive before the step starts."""
         if t.untyped_storage()._cdata in self._live:
             return   # a second view of an input already registered
-        self._new_block(t, "input", kind, scope, pinned=True)
+        self.input_blocks.append(
+            self._new_block(t, "input", kind, scope, pinned=True))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         self._op = func._schema.name
         out = func(*args, **(kwargs or {}))
+        scope = ("backward" if torch._C._current_graph_task_id() != -1
+                 else "")
         for t in pytree.tree_leaves(out):
             if not isinstance(t, torch.Tensor):
                 continue
@@ -138,20 +183,35 @@ class TorchMemoryTracer(TorchDispatchMode):
             key = st._cdata
             if key in self._live or st.nbytes() == 0:
                 continue   # a view, an in-place result, or nothing
-            self._new_block(t, self._op, BlockKind.ACTIVATION)
+            self._new_block(t, self._op, BlockKind.ACTIVATION, scope)
             self._finalizers[key] = weakref.finalize(st, self._on_free, key)
+        rule = _KERNEL_TEMPS.get(func)
+        if rule is not None:
+            temps = [_Block(len(self.blocks) + i, size, kind=BlockKind.TEMP,
+                            alloc_t=self.t, op=self._op, scope=scope)
+                     for i, size in enumerate(rule(*args))]
+            for b in temps:
+                self.blocks[b.bid] = b
+                self._emit(True, b, self._op)
+            for b in temps:
+                b.free_t = self.t
+                self._emit(False, b, self._op)
         return out
 
-    def finish(self, out) -> Trace:
-        """Pin the step's outputs and close the stream."""
-        for t in pytree.tree_leaves(out):
-            if not isinstance(t, torch.Tensor):
-                continue
+    def finish(self, out,
+               out_kinds: Sequence[BlockKind] | None = None) -> Trace:
+        """Pin the step's outputs and close the stream. ``out_kinds``
+        gives the kind of each tensor leaf of ``out`` (default
+        ``OUTPUT``)."""
+        leaves = [t for t in pytree.tree_leaves(out)
+                  if isinstance(t, torch.Tensor)]
+        for i, t in enumerate(leaves):
             b = self._live.get(t.untyped_storage()._cdata)
             if b is None or b.pinned:
                 continue   # an input (e.g. the cache updated in place)
             b.pinned = True
-            b.kind = BlockKind.OUTPUT
+            b.kind = out_kinds[i] if out_kinds is not None \
+                else BlockKind.OUTPUT
             self.output_blocks.append(b)
         self._closed = True
         for fin in self._finalizers.values():
@@ -190,15 +250,20 @@ def _fake_like(t: torch.Tensor) -> torch.Tensor:
 
 def trace_fn(fn: Callable, *args, arg_kinds: Sequence[BlockKind] | None = None,
              arg_scopes: Sequence[str] | None = None,
-             phase: Phase = Phase.FORWARD_BACKWARD, iteration: int = 0
+             phase: Phase = Phase.FORWARD_BACKWARD, iteration: int = 0,
+             grad: bool = False,
+             out_kind_fn: Callable | None = None
              ) -> tuple[Trace, TorchMemoryTracer, object]:
     """Trace ``fn(*args)`` into a memory-event stream without running it.
 
     ``args`` are pytrees of tensors (real, ``meta`` or any device: only
     shape, strides and dtype are read). ``arg_kinds``/``arg_scopes`` are
     flat lists aligned with the flattened arguments (see
-    ``estimator.flatten_kinds``). Returns ``(trace, tracer, out)`` where
-    ``out`` holds the step's outputs as fake tensors."""
+    ``estimator.flatten_kinds``). ``grad`` runs the step with grad mode
+    on (a training step that calls ``torch.autograd.grad``); serving
+    steps run under ``torch.no_grad()``. ``out_kind_fn(out)`` gives the
+    kinds of the output's tensor leaves. Returns ``(trace, tracer,
+    out)`` where ``out`` holds the step's outputs as fake tensors."""
     leaves, spec = pytree.tree_flatten(args)
     mode = FakeTensorMode()
     tr = TorchMemoryTracer(phase=phase, iteration=iteration)
@@ -212,7 +277,7 @@ def trace_fn(fn: Callable, *args, arg_kinds: Sequence[BlockKind] | None = None,
             tr.register(t, kind, scope)
     fake_args = pytree.tree_unflatten(fakes, spec)
     del fakes
-    with torch.no_grad(), mode, tr:
+    with torch.set_grad_enabled(grad), mode, tr:
         out = fn(*fake_args)
-    trace = tr.finish(out)
+    trace = tr.finish(out, out_kind_fn(out) if out_kind_fn else None)
     return trace, tr, out

@@ -68,14 +68,19 @@ def make_prefill_fn(cfg):
 
 
 def device_capacity(device="cuda") -> int:
-    """Bytes of device memory the gate budgets against."""
-    return int(torch.cuda.get_device_properties(device).total_memory)
+    """Bytes of device memory the gate budgets against: what this
+    process's caching allocator can hold, i.e. what it holds now plus
+    what ``cudaMemGetInfo`` still reports free. Less than
+    ``total_memory`` by the CUDA contexts and whatever other processes
+    hold."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return int(free + torch.cuda.memory_reserved(device))
 
 
 def pick_batch(cfg, max_len: int, capacity: int | None = None,
                candidates=(64, 32, 16, 8, 4, 2, 1)):
     """Largest batch whose serving estimates fit ``capacity`` (default:
-    the card's total memory).
+    what the card's caching allocator can hold, ``device_capacity``).
 
     Gates on ``max(prefill, decode)`` peak, the prefill traced at a
     ``max_len`` prompt. Returns ``(batch, gate)``; ``gate`` holds every
@@ -190,7 +195,7 @@ def main(argv=None) -> int:
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--capacity-gib", type=float, default=None,
-                    help="default: the card's total memory")
+                    help="default: what the card's allocator can hold")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 

@@ -1,0 +1,184 @@
+"""Training launcher: the xMem admission gate, then the training loop.
+
+Before a parameter is allocated, the xMem training estimator (traced on
+the CPU under fake tensors, composed over 3 iterations, replayed through
+the CUDA caching allocator simulation at the card's capacity) picks the
+largest global batch of the candidates whose estimate fits. Then the
+loop trains that batch: on the card every step runs inside the training
+measurement (``measured_training``), which reads the real peaks beside
+the estimate.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-32b \\
+      --n-layers 4 --seq 4096 --batch 8 --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-32b \\
+      --smoke --device cpu --steps 3
+
+Capacity comes from the card (``serve.device_capacity``: the free
+memory plus what the caching allocator holds); a CPU run budgets
+nothing. No checkpoints yet (ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+
+import torch
+
+from ..configs import get_config, get_smoke
+from ..configs.base import ShapeSpec, smoke_shape
+from ..configs.registry import input_specs
+from ..core.baselines.directprobe import measured_training
+from ..core.estimator import EstimateReport, XMemEstimator
+from ..models import model as M
+from ..train import (SyntheticDataset, TrainPolicy, make_estimator_hooks,
+                     run_steps)
+from .serve import device_capacity
+
+
+def admission_check(cfg, policy: TrainPolicy, shape: ShapeSpec,
+                    capacity: int, est: XMemEstimator | None = None
+                    ) -> tuple[bool, EstimateReport]:
+    """xMem gate: estimate the job's peak device memory on the CPU and
+    admit it when the replay at ``capacity`` neither ran out of memory
+    nor reserved more than ``capacity``."""
+    est = est or XMemEstimator.for_torch_gpu()
+    fwd_bwd, update, opt_init = make_estimator_hooks(cfg, policy)
+    rep = est.estimate_training(fwd_bwd, M.abstract_params(cfg),
+                                input_specs(cfg, shape), update_fn=update,
+                                opt_init_fn=opt_init, capacity=capacity)
+    return (not rep.oom and rep.peak_bytes <= capacity), rep
+
+
+def pick_train_batch(cfg, policy: TrainPolicy, seq_len: int,
+                     capacity: int | None = None,
+                     candidates=(8, 4, 2, 1)):
+    """Largest global batch of ``candidates`` whose training estimate,
+    replayed at ``capacity`` (default: ``device_capacity()``), fits.
+
+    One estimator serves every candidate, so its trace cache gives the
+    batch-independent optimizer phases to all but the first. Returns
+    ``(batch, gate)``; ``gate`` holds every candidate tried, the
+    admitting report, the CPU seconds and the trace-cache counts, or
+    ``(None, gate)`` when no candidate fits."""
+    if capacity is None:
+        capacity = device_capacity()
+    est = XMemEstimator.for_torch_gpu()
+    gate: dict = {"capacity": capacity, "candidates": []}
+    t0 = time.perf_counter()
+    batch = None
+    for b in candidates:
+        if b % policy.microbatches:
+            continue
+        ok, rep = admission_check(cfg, policy, smoke_shape(seq_len, b),
+                                  capacity, est)
+        gate["candidates"].append(
+            {"batch": b, "estimate": rep.peak_bytes,
+             "tensor": rep.peak_tensor_bytes, "oom": rep.oom, "fits": ok})
+        if ok:
+            batch = b
+            gate.update(batch=b, report=rep)
+            break
+    gate["seconds"] = time.perf_counter() - t0
+    gate["trace_cache"] = {"hits": est.trace_cache.hits,
+                           "misses": est.trace_cache.misses}
+    return batch, gate
+
+
+def train_loop(cfg, shape: ShapeSpec, policy: TrainPolicy, *, steps: int,
+               device="cuda", seed: int = 0, params=None,
+               history: bool = False):
+    """Train ``steps`` steps of ``shape``'s batch from random weights
+    (``seed``) on synthetic data. On a CUDA device the steps run inside
+    ``measured_training`` (``history``: with the allocator's request
+    history) and the result is its ``MeasuredPeak`` (the ``TrainRun`` in
+    ``out``); on the CPU the result is the ``TrainRun``."""
+    fwd_bwd, update, opt_init = make_estimator_hooks(cfg, policy)
+    if params is None:
+        params = M.init_params(cfg, seed, device=device)
+    ds = SyntheticDataset(cfg, shape)
+
+    def batch_fn(step):
+        return ds.device_batch(step, device)
+
+    if torch.device(device).type == "cuda":
+        return measured_training(fwd_bwd, update, opt_init, params,
+                                 batch_fn, steps, device, history)
+    return run_steps(fwd_bwd, update, opt_init, params, batch_fn, steps)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth (full width is kept)")
+    ap.add_argument("--steps", type=int, default=3,
+                    help="0: gate only, allocate nothing")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="largest global batch the gate tries; it halves "
+                         "down to 1")
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--capacity-gib", type=float, default=None,
+                    help="default: what the card's allocator can hold")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    on_card = torch.device(args.device).type == "cuda"
+    if on_card and not torch.cuda.is_available():
+        print("[xmem] no CUDA device; pass --device cpu to train on the CPU",
+              file=sys.stderr)
+        return 1
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    cfg = dataclasses.replace(cfg, n_layers=args.n_layers or cfg.n_layers)
+    policy = TrainPolicy(optimizer=args.optimizer, learning_rate=args.lr,
+                         microbatches=args.microbatches)
+    if args.capacity_gib:
+        capacity = int(args.capacity_gib * 2**30)
+    elif on_card:
+        capacity = device_capacity(args.device)
+    else:
+        capacity = 1 << 62          # a CPU run budgets nothing
+    candidates, b = [], args.batch
+    while b >= 1:
+        candidates.append(b)
+        b //= 2
+    batch, gate = pick_train_batch(cfg, policy, args.seq, capacity,
+                                   candidates)
+    for c in gate["candidates"]:
+        print(f"[xmem] batch {c['batch']}: estimate "
+              f"{c['estimate'] / 2**20:.1f} MiB (tensors "
+              f"{c['tensor'] / 2**20:.1f}{', out of memory' if c['oom'] else ''}"
+              f") -> {'ADMIT' if c['fits'] else 'REJECT'}")
+    print(f"[xmem] capacity {capacity / 2**20:.0f} MiB, gate "
+          f"{gate['seconds']:.2f} s, trace cache "
+          f"{gate['trace_cache']['hits']}h/{gate['trace_cache']['misses']}m")
+    if batch is None:
+        print("[xmem] no batch fits -> rejected")
+        return 2
+    if args.steps == 0:
+        return 0
+    shape = smoke_shape(args.seq, batch)
+    got = train_loop(cfg, shape, policy, steps=args.steps,
+                     device=args.device, seed=args.seed)
+    run = got.out if on_card else got
+    for step, (loss, s) in enumerate(zip(run.losses, run.step_s)):
+        print(f"step {step:3d} loss {loss:.4f} ({s * 1e3:.0f} ms)")
+    result = {"device": args.device, "batch": batch, "losses": run.losses,
+              "step_ms": [s * 1e3 for s in run.step_s],
+              "estimate": gate["report"].peak_bytes,
+              "tensor_estimate": gate["report"].peak_tensor_bytes}
+    if on_card:
+        result["measured"] = got.to_json()
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

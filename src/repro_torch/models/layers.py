@@ -6,11 +6,12 @@ Conventions, as in the JAX package:
 * matmuls run in the param dtype (bf16); softmax statistics and norms
   accumulate in f32.
 * long sequences (> ``dense_threshold``) use chunked online-softmax
-  attention (O(S) memory instead of the O(S^2) score matrix);
+  attention (O(S) memory instead of the O(S^2) score matrix), which
+  also trains: each query chunk is checkpointed, as the JAX package's
+  ``jax.checkpoint`` over its q-chunk scan;
   ``attention.impl == "flash"`` routes to the hand-written Hopper
-  kernel (``repro_torch.kernels``), which replaces the Pallas kernel.
-
-Everything here is forward-only: the port's first slice serves.
+  kernel (``repro_torch.kernels``), which replaces the Pallas kernel
+  and, like it, is forward-only (serving).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import AttentionConfig
 
@@ -94,46 +96,67 @@ def dense_attention(q, k, v, *, causal=True, window=None, is_global=None):
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def _attend_q_chunk(qc, k, v, q0: int, *, causal, window, is_global,
+                    chunk_kv: int):
+    """One query chunk ``qc`` [B, cq, Hkv, G, hd] against all KV chunks:
+    the inner loop carrying (acc, running max m, denominator l) in f32.
+    Returns [B, cq, H, hd] in f32."""
+    B, cq, Hkv, G, hd = qc.shape
+    Sk = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    q_pos = torch.arange(q0, q0 + cq, device=qc.device)
+    acc = torch.zeros((B, Hkv, G, cq, hd), dtype=torch.float32,
+                      device=qc.device)
+    m = torch.full((B, Hkv, G, cq), float("-inf"), device=qc.device)
+    l = torch.zeros((B, Hkv, G, cq), device=qc.device)
+    for k0 in range(0, Sk, chunk_kv):
+        kc, vc = k[:, k0:k0 + chunk_kv], v[:, k0:k0 + chunk_kv]
+        kv_pos = torch.arange(k0, k0 + kc.shape[1], device=qc.device)
+        s = _grouped_scores(qc, kc) * scale               # [B,Hkv,G,cq,ckv]
+        ok = _attend_ok(q_pos, kv_pos, causal=causal, window=window,
+                        is_global=is_global)
+        s = s.masked_fill(~ok, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # guard fully-masked rows (exp(-inf - -inf))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(torch.isfinite(s), p, 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p, vc.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    o = acc / torch.clamp(l[..., None], min=1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, cq, Hkv * G, hd)
+
+
 def chunked_attention(q, k, v, *, causal=True, window=None, is_global=None,
                       chunk_q: int = 512, chunk_kv: int = 1024):
     """Online-softmax attention over KV chunks: O(S * chunk) memory.
 
-    The JAX package's two nested scans become two Python loops carrying
-    (acc, running max m, denominator l) in f32. Forward only."""
+    The JAX package's two nested scans become two Python loops. Under
+    grad mode each query chunk is checkpointed (non-reentrant), the
+    counterpart of ``jax.checkpoint(q_body)``: the backward recomputes
+    one chunk's scores at a time instead of keeping every chunk's. The
+    chunks are joined with ``torch.cat``, so no output is written in
+    place."""
     B, S, H, hd = q.shape
-    Sk = k.shape[1]
     Hkv = k.shape[2]
     G = H // Hkv
-    scale = 1.0 / math.sqrt(hd)
-    out = torch.empty_like(q)
+    train = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
+    chunks = []
     for q0 in range(0, S, chunk_q):
         qc = q[:, q0:q0 + chunk_q].reshape(B, -1, Hkv, G, hd)
-        cq = qc.shape[1]
-        q_pos = torch.arange(q0, q0 + cq, device=q.device)
-        acc = torch.zeros((B, Hkv, G, cq, hd), dtype=torch.float32,
-                          device=q.device)
-        m = torch.full((B, Hkv, G, cq), float("-inf"), device=q.device)
-        l = torch.zeros((B, Hkv, G, cq), device=q.device)
-        for k0 in range(0, Sk, chunk_kv):
-            kc, vc = k[:, k0:k0 + chunk_kv], v[:, k0:k0 + chunk_kv]
-            kv_pos = torch.arange(k0, k0 + kc.shape[1], device=q.device)
-            s = _grouped_scores(qc, kc) * scale           # [B,Hkv,G,cq,ckv]
-            ok = _attend_ok(q_pos, kv_pos, causal=causal, window=window,
-                            is_global=is_global)
-            s = s.masked_fill(~ok, float("-inf"))
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            # guard fully-masked rows (exp(-inf - -inf))
-            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-            p = torch.exp(s - m_safe[..., None])
-            p = torch.where(torch.isfinite(s), p, 0.0)
-            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-            l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum("bhgqk,bkhd->bhgqd", p, vc.float())
-            acc = acc * corr[..., None] + pv
-            m = m_new
-        o = acc / torch.clamp(l[..., None], min=1e-30)
-        out[:, q0:q0 + cq] = o.permute(0, 3, 1, 2, 4).reshape(B, cq, H, hd)
-    return out
+        kw = dict(causal=causal, window=window, is_global=is_global,
+                  chunk_kv=chunk_kv)
+        if train:
+            o = checkpoint(_attend_q_chunk, qc, k, v, q0, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
+        else:
+            o = _attend_q_chunk(qc, k, v, q0, **kw)
+        chunks.append(o.to(q.dtype))
+    return chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=1)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len: int, *,
@@ -271,3 +294,18 @@ def mlp_params(gen, d_model, d_ff, dtype, *, device, lead=()):
         "w_down": normal_init(gen, lead + (d_ff, d_model), s_out, dtype,
                               device),
     }
+
+
+def cross_entropy_loss(logits, labels, ignore_index: int = -1):
+    """Mean token cross-entropy in f32; ``labels == ignore_index`` masked.
+
+    The JAX package contracts the logits with a one-hot of the labels
+    so that vocab-sharded logits need no gather. On one card the label
+    term is ``torch.gather`` along the vocab of the f32 log-softmax:
+    the same numbers (lse - logit[label]) without a [B, S, V] f32
+    one-hot tensor. ``log_softmax`` keeps only its output for the
+    backward, so the f32 copy of the logits dies in the forward."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    picked = torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])
+    mask = (labels != ignore_index).float()
+    return -(picked[..., 0] * mask).sum() / mask.sum().clamp(min=1.0)

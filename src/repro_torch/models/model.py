@@ -4,7 +4,9 @@ Parameters are a plain dict with the JAX pytree's key paths and the
 per-layer weights stacked ``[L, ...]``, so a JAX parameter tree converts
 name for name (``convert.py``) and parameter bytes match byte for byte.
 The JAX package's ``lax.scan`` over the stack is a Python loop over
-layer views here. Serving: ``init_cache`` + ``decode_step`` decode one
+layer views here, each layer checkpointed per ``cfg.remat`` when it
+trains. Training: ``loss_fn``; its gradients keep the stacked shapes
+(``_LayerSlice``). Serving: ``init_cache`` + ``decode_step`` decode one
 token against a KV cache that is updated in place.
 
 Only the dense family is ported (gemma3's local:global flags included).
@@ -13,13 +15,17 @@ ROADMAP Queue 1 item 11.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from .layers import (attention_block, attention_block_params,
-                     attention_decode_block, mlp_params, normal_init,
-                     rms_norm, swiglu)
+                     attention_decode_block, cross_entropy_loss, mlp_params,
+                     normal_init, rms_norm, swiglu)
 
 
 def _require_dense(cfg: ModelConfig) -> None:
@@ -77,10 +83,42 @@ def _global_flags(cfg: ModelConfig) -> list[bool] | None:
     return [(i % ge) == ge - 1 for i in range(cfg.n_layers)]
 
 
+class _LayerSlice(torch.autograd.Function):
+    """Layer ``i``'s view of a stacked ``[L, ...]`` leaf whose backward
+    writes the layer's gradient into one stacked gradient, the leaf's
+    ``.grad`` (zeros at the first write), and hands autograd nothing.
+
+    A plain ``leaf[i]`` under autograd gives each layer a
+    ``select_backward``: a zero-filled gradient the size of the whole
+    stack, L times a leaf, summed by the engine. The JAX package's
+    ``lax.scan`` transpose writes each slice into one stacked buffer
+    instead; this does the same, so the port's stacked gradients have
+    the JAX shapes and bytes and no L-fold temporaries."""
+
+    @staticmethod
+    def forward(ctx, leaf, i):
+        ctx.leaf, ctx.i = leaf, i
+        return leaf[i]
+
+    @staticmethod
+    def backward(ctx, g):
+        leaf = ctx.leaf
+        if leaf.grad is None:
+            leaf.grad = torch.zeros_like(leaf)
+        leaf.grad[ctx.i].add_(g)
+        return None, None
+
+
 def layer_params(layers: dict, i: int) -> dict:
-    """Layer ``i``'s weights: views into the stacked ``[L, ...]`` tree."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in layers.items()}
+    """Layer ``i``'s weights: views into the stacked ``[L, ...]`` tree
+    (through ``_LayerSlice`` for leaves that take a gradient)."""
+    def take(v):
+        if isinstance(v, dict):
+            return layer_params(v, i)
+        if v.requires_grad and torch.is_grad_enabled():
+            return _LayerSlice.apply(v, i)
+        return v[i]
+    return {k: take(v) for k, v in layers.items()}
 
 
 def _decoder_layer(x, lp, cfg: ModelConfig, *, is_global=None,
@@ -96,14 +134,39 @@ def _decoder_layer(x, lp, cfg: ModelConfig, *, is_global=None,
     return x
 
 
+_MATMULS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default})
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the matmul outputs, recompute the rest
+    (the counterpart of ``jax.checkpoint_policies.checkpoint_dots``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` checkpointed per ``cfg.remat`` when it will be
+    differentiated (``"full"``: recompute everything in the backward;
+    ``"dots"``: recompute all but the matmuls; ``"none"``: keep all)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    return functools.partial(checkpoint, fn, **kw)
+
+
 def backbone(params, x, cfg: ModelConfig, positions=None):
     """x: [B, S, D] embedded inputs -> final hidden states."""
     _require_dense(cfg)
     flags = _global_flags(cfg)
+    layer = _remat(_decoder_layer, cfg)
     for i in range(cfg.n_layers):
-        x = _decoder_layer(x, layer_params(params["layers"], i), cfg,
-                           is_global=None if flags is None else flags[i],
-                           positions=positions)
+        x = layer(x, layer_params(params["layers"], i), cfg,
+                  is_global=None if flags is None else flags[i],
+                  positions=positions)
     return rms_norm(x, params["final_norm"])
 
 
@@ -116,6 +179,14 @@ def logits_fn(params, h, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return h @ params["embed"].T
     return h @ params["head"]
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig):
+    """Mean next-token cross-entropy of ``batch`` (tokens, labels)."""
+    x = embed_inputs(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    h = backbone(params, x, cfg, positions=positions)
+    return cross_entropy_loss(logits_fn(params, h, cfg), batch["labels"])
 
 
 # ---------------------------------------------------------------------------

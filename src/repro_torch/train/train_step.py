@@ -1,17 +1,156 @@
-"""Serving step factories (PyTorch port of the serving half of
-``repro.train.train_step``). Every step runs under ``torch.no_grad()``:
-the port's first slice serves, and training waits for its own slice.
+"""Training and serving step factories (PyTorch port of
+``repro.train.train_step``).
+
+``make_train_step`` builds the eager step: loss and gradients
+(``torch.autograd.grad``, remat inside the model) -> optional microbatch
+accumulation into f32 buffers -> optional global-norm clipping -> the
+in-place optimizer update. The xMem estimator consumes the same pieces
+(``make_estimator_hooks``: fwd_bwd / update / opt_init), so it is wired
+to the real step, not to a model of it.
+
+Serving steps run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Callable
 
 import torch
+from torch.utils import _pytree as pytree
 
 from ..configs.base import ModelConfig
 from ..models import model as M
+from .optimizer import Optimizer, clip_by_global_norm, get_optimizer
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainPolicy:
+    optimizer: str = "adamw"
+    learning_rate: float = 3e-4
+    clip_norm: float | None = 1.0
+    microbatches: int = 1          # gradient-accumulation steps
+    opt_kwargs: tuple = ()
+
+
+def make_fwd_bwd(cfg: ModelConfig, microbatches: int = 1) -> Callable:
+    """(params, batch) -> (loss, grads), optionally accumulating over
+    ``microbatches`` as the JAX package's scan does: f32 accumulators
+    made before the first microbatch, each microbatch's gradients added
+    in and freed, the sum divided by ``n`` (so accumulated gradients are
+    f32). ``batch`` leading dims must divide evenly.
+
+    ``params`` are plain tensors; the step detaches them and asks for
+    their gradients, so the caller's parameters never carry autograd
+    state between steps."""
+    def fwd_bwd(params, batch):
+        leaves, spec = pytree.tree_flatten(params)
+        leaves = [p.detach().requires_grad_() for p in leaves]
+        loss = M.loss_fn(pytree.tree_unflatten(leaves, spec), batch, cfg)
+        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # stacked [L, ...] leaves get their gradient through
+        # ``model._LayerSlice``, which writes it into the leaf's .grad
+        grads = [g if g is not None else
+                 p.grad if p.grad is not None else torch.zeros_like(p)
+                 for g, p in zip(got, leaves)]
+        return loss.detach(), pytree.tree_unflatten(grads, spec)
+    if microbatches <= 1:
+        return fwd_bwd
+    n = microbatches
+
+    def fwd_bwd_accum(params, batch):
+        acc = pytree.tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), params)
+        acc_leaves = pytree.tree_leaves(acc)
+        loss_sum = None
+        for micro in _split_microbatches(batch, n):
+            loss, grads = fwd_bwd(params, micro)
+            for a, g in zip(acc_leaves, pytree.tree_leaves(grads)):
+                a.add_(g)
+            del grads
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+        for a in acc_leaves:
+            a.div_(n)
+        return loss_sum / n, acc
+
+    return fwd_bwd_accum
+
+
+def _split_microbatches(batch: dict, n: int) -> list[dict]:
+    """``n`` microbatches of ``batch``, as views along the batch dim."""
+    for x in pytree.tree_leaves(batch):
+        if x.shape[0] % n:
+            raise ValueError(f"batch {x.shape[0]} not divisible by {n} "
+                             f"microbatches")
+    return [pytree.tree_map(
+        lambda x: x.reshape((n, x.shape[0] // n) + x.shape[1:])[k], batch)
+        for k in range(n)]
+
+
+def _optimizer_and_update(policy: TrainPolicy) -> tuple[Optimizer, Callable]:
+    opt = get_optimizer(policy.optimizer, lr=policy.learning_rate,
+                        **dict(policy.opt_kwargs))
+    update_fn = opt.update
+    if policy.clip_norm is not None:
+        update_fn = clip_by_global_norm(update_fn, policy.clip_norm)
+    return opt, update_fn
+
+
+def make_train_step(cfg: ModelConfig, policy: TrainPolicy
+                    ) -> tuple[Callable, Optimizer]:
+    """Returns (train_step(params, opt_state, batch) -> loss, optimizer).
+    The step updates ``params`` and ``opt_state`` in place; its
+    gradients die when it returns."""
+    opt, update_fn = _optimizer_and_update(policy)
+    fwd_bwd = make_fwd_bwd(cfg, policy.microbatches)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = fwd_bwd(params, batch)
+        update_fn(params, grads, opt_state)
+        return loss
+
+    return train_step, opt
+
+
+@dataclasses.dataclass
+class TrainRun:
+    losses: list[float]           # each step's loss
+    step_s: list[float]           # each step's wall time (synchronized)
+
+
+def run_steps(fwd_bwd: Callable, update_fn: Callable, opt_init_fn: Callable,
+              params, batch_fn: Callable, steps: int) -> TrainRun:
+    """The training loop: ``steps`` times, ``batch_fn(step)`` (tensors
+    on ``device``), forward+backward, in-place update. The optimizer
+    state is made after the first backward, where the estimator's
+    composition places it. Each step ends with its loss on the host, so
+    its wall time covers the device's work; the gradients and the batch
+    die with the step."""
+    losses, step_s = [], []
+    opt_state = None
+    for step in range(steps):
+        t0 = time.perf_counter()
+        batch = batch_fn(step)
+        loss, grads = fwd_bwd(params, batch)
+        if opt_state is None:
+            opt_state = opt_init_fn(params)
+        update_fn(params, grads, opt_state)
+        del grads, batch
+        losses.append(loss.item())
+        del loss
+        step_s.append(time.perf_counter() - t0)
+    return TrainRun(losses, step_s)
+
+
+def make_estimator_hooks(cfg: ModelConfig, policy: TrainPolicy):
+    """The (fwd_bwd, update, opt_init) triple xMem estimates from: the
+    same code as the real step, ``policy.microbatches`` included."""
+    opt, update_fn = _optimizer_and_update(policy)
+    return make_fwd_bwd(cfg, policy.microbatches), update_fn, opt.init
+
+
+# ---------------------------------------------------------------------------
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     """Forward over the full prompt -> last-position logits."""
     @torch.no_grad()

@@ -114,7 +114,15 @@ bad = sorted(n for n in sys.modules if n in ("jax", "jaxlib")
              or n.startswith(("jax.", "jaxlib.", "repro.")) or n == "repro")
 print("BAD", bad)
 print("N", sum(n.startswith("repro_torch") for n in sys.modules))
+print("HAVE", sorted(n for n in sys.modules if n.startswith("repro_torch.")))
 """
+
+# the training slice's modules, which the walk above must have imported
+_TRAINING_MODULES = (
+    "repro_torch.core.analyzer", "repro_torch.core.cache",
+    "repro_torch.core.metrics", "repro_torch.train.optimizer",
+    "repro_torch.train.data", "repro_torch.train.train_step",
+    "repro_torch.launch.train", "repro_torch.examples.quickstart")
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
@@ -123,7 +131,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120, check=True).stdout
     assert "BAD []" in out
-    assert int(out.split("N ")[1]) >= 20
+    assert int(out.split("N ")[1].split()[0]) >= 28
+    have = out.split("HAVE ")[1]
+    assert all(repr(m) in have for m in _TRAINING_MODULES)
 
 
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
