@@ -11,8 +11,9 @@ non-zero:
 3. kernels — each kernel against its plain PyTorch version on the card
    (the cases of ``tests/test_kernels.py``, head dim 256, gemma3-4b's
    attention shape with and without its window, each through the kernel
-   that ``route`` picks; then both kernels at the serving shape), and
-   their times beside the plain version, a library call and the bound;
+   that ``route`` picks; then both kernels at qwen3-32b's serving shape
+   and the sm90 kernel at phi3.5-moe's), and their times beside the
+   plain version, a library call and the bound;
 4. main    — qwen3-32b at full width, depth cut to 8 layers: the xMem
    serving gate (``pick_batch``, traced on the CPU), then ``serve`` on
    the card (two requests of 2048-token prompts, 16 decoded tokens
@@ -22,7 +23,15 @@ non-zero:
    aligned with the trace's (``requests``), the device time of one warm
    prefill by kernel (``profile``), and the kernel path's logits against
    the dense path's (``parity``);
-5. train   — in a child process of its own (``--train``), as a
+5. moe_layer — one phi3.5-moe MoE layer at full width: the card's
+   allocator requests (with the ATen function that made each) against
+   the trace's, for the serving forward and for a training forward and
+   backward: what the CPU trace misses inside the dispatch's ops;
+6. moe_main — the same serving path for phi3.5-moe-42b-a6.6b at full
+   width, depth cut to 8 layers (``moe_gate``, ``moe_main``,
+   ``moe_requests``, ``moe_profile``, ``moe_parity``), and the tokens
+   each expert took and dropped at the prefill (``moe_experts``);
+7. train   — in a child process of its own (``--train dense``), as a
    training job runs: qwen3-32b at full width, depth cut to 4 layers,
    sequences of 4096: the xMem training gate (``pick_train_batch`` over
    batches 8, 4, 2, 1, traced on the CPU; ``train_gate``), then 3 AdamW
@@ -31,9 +40,12 @@ non-zero:
    ``max_memory_allocated``, requests and segments, and the card's own
    request stream replayed through the allocator simulation), and the
    window's allocator requests set against the trace's
-   (``train_requests``). The training path launches neither attention
-   kernel: it trains through the chunked attention, as the JAX package
-   does.
+   (``train_requests``);
+8. moe_train — the same in a child of its own (``--train moe``) for
+   phi3.5-moe at full width, sequences of 4096, depth cut to 3 layers
+   (``moe_train_gate``, ``moe_train``, ``moe_train_requests``). The
+   training paths launch neither attention kernel: they train through
+   the chunked attention, as the JAX package does.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
@@ -60,13 +72,19 @@ MAX_LEN = 2064
 PROMPT_LEN = 2048
 DECODE_TOKENS = 16
 REQUESTS = 2
-SERVING_SHAPE = (8, 64, 8, PROMPT_LEN, 128)   # B, H, Hkv, S, d of qwen3-32b
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+# serving paths: arch -> (B, H, Hkv, S, d) of its prefill attention, and
+# the kernels held against the plain version at that shape
+SERVING_SHAPES = {"qwen3-32b": ((8, 64, 8, PROMPT_LEN, 128), ("sm90", "simt")),
+                  MOE_ARCH: ((8, 32, 8, PROMPT_LEN, 128), ("sm90",))}
 GEMMA_SHAPE = (2, 8, 4, 4096, 256)            # gemma3-4b, head dim 256
 GEMMA_WINDOW = 1024                           # its local layers' window
 # kernel -> (source, timed launches at the serving shape)
 KERNELS = {"sm90": ("src/repro_torch/csrc/flash_attention_sm90.cu", 20),
            "simt": ("src/repro_torch/csrc/flash_attention.cu", 3)}
-TRAIN_LAYERS = 4
+# training jobs: name -> (arch, depth). phi3.5-moe at 4 layers fits only
+# with 0.27 GB to spare, and its gate rejects every batch 0.5 GB lower
+TRAIN_JOBS = {"dense": ("qwen3-32b", 4), "moe": (MOE_ARCH, 3)}
 TRAIN_SEQ = 4096            # TRAIN_4K's sequence length
 TRAIN_CANDIDATES = (8, 4, 2, 1)
 TRAIN_STEPS = 3             # the estimator composes 3 iterations
@@ -75,10 +93,23 @@ TRAIN_STEPS = 3             # the estimator composes 3 iterations
 # the output to bf16, so they differ by output roundings carried
 # through 8 layers
 LOGITS_REL_TOL = 5e-2
+# the estimate against the card: |estimate - max_memory_reserved| and
+# |peak_tensor_bytes - max_memory_allocated| over the measured value (the
+# paper's 5 % band; a training job's live tensors are held tighter, the
+# serving path's leave cuBLAS's workspaces unmodeled)
+RESERVED_TOL = 0.05
+ALLOCATED_TOL = 0.01
+SERVING_ALLOCATED_TOL = 0.05
 
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def within(what: str, rel: float, tol: float) -> None:
+    if not abs(rel) <= tol:
+        raise AssertionError(f"{what}: estimate off by {rel:+.4%}, "
+                             f"beyond {tol:.0%}")
 
 
 def nvidia_smi() -> str:
@@ -277,9 +308,33 @@ def phase_kernels() -> list[dict]:
         del q, k, v, qt, kt, vt, out
         torch.cuda.empty_cache()
 
-    # the serving shape, in the model layout the main path passes: both
+    # each serving path's shape, in the model layout the path passes: its
     # kernels against the plain version, their times, the library call's
-    B, H, Hkv, S, d = SERVING_SHAPE
+    rows, shapes = [], {}
+    for path, (shape, kernels) in SERVING_SHAPES.items():
+        got, cases, lim = serving_shape_rows(path, shape, kernels, rand,
+                                             sdpa)
+        rows += got
+        results += cases
+        shapes[path] = {"shape": list(shape), "flops": lim["flops"],
+                        "bytes": lim["bytes"],
+                        "tflops": {r["name"]: lim["flops"] / r["ms"] / 1e9
+                                   for r in got}}
+    emit("kernels", cases=results, shapes=shapes, rows=rows, gemma3=gemma,
+         memory=device_memory())
+    return rows
+
+
+def serving_shape_rows(path: str, shape, kernels, rand, sdpa):
+    """``kernels`` at a serving path's prefill shape (bf16, causal)
+    against the plain version: the summary rows, the cases and the
+    bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+
+    bf16, tol = torch.bfloat16, 2e-2
+    B, H, Hkv, S, d = shape
     q = rand(B, S, H, d, dtype=bf16)
     k = rand(B, S, Hkv, d, dtype=bf16)
     v = rand(B, S, Hkv, d, dtype=bf16)
@@ -287,46 +342,44 @@ def phase_kernels() -> list[dict]:
     ref = attention_ref(qt, kt, vt, causal=True)
     plain_ms = cuda_ms(lambda: attention_ref(qt, kt, vt, causal=True),
                        reps=2)
-    outs = {}
-    for kernel in KERNELS:
-        outs[kernel] = fa.launch(kernel, qt, kt, vt, causal=True)
+    errs, cases = {}, []
+    for kernel in kernels:
+        out = fa.launch(kernel, qt, kt, vt, causal=True)
         torch.cuda.synchronize()
-        err = (outs[kernel].float() - ref.float()).abs().max().item()
-        results.append({"case": f"serving_b{B}h{H}kv{Hkv}s{S}d{d}",
-                        "dtype": str(bf16), "kernel": kernel, "err": err,
-                        "tol": tol[bf16]})
-        if not err < tol[bf16]:
-            raise AssertionError(f"serving-shape case, {kernel}: max error "
-                                 f"{err}")
-        outs[kernel] = err
+        errs[kernel] = (out.float() - ref.float()).abs().max().item()
+        del out
+        cases.append({"case": f"serving_b{B}h{H}kv{Hkv}s{S}d{d}",
+                      "dtype": str(bf16), "kernel": kernel,
+                      "err": errs[kernel], "tol": tol})
+        if not errs[kernel] < tol:
+            raise AssertionError(f"{path} serving-shape case, {kernel}: max "
+                                 f"error {errs[kernel]}")
     del ref
     torch.cuda.empty_cache()
     library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                       enable_gqa=True), reps=10)
-    serving_bound = bound(B * H * d, S, None, (q, k, v, q))   # q: the out
+    lim = bound(B * H * d, S, None, (q, k, v, q))   # q: the out
     rows = []
-    for kernel, (source, reps) in KERNELS.items():
+    for kernel in kernels:
+        source, reps = KERNELS[kernel]
         ms = cuda_ms(lambda: fa.launch(kernel, qt, kt, vt, causal=True),
                      reps=reps)
         rows.append({"name": f"flash_attention_{kernel}", "route": "cuda",
                      "source": source,
                      "replaces": "src/repro/kernels/flash_attention.py:93",
-                     "launches": None, "max_abs_err": outs[kernel],
+                     "path": path, "shape": list(shape),
+                     "launches": None, "max_abs_err": errs[kernel],
                      "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": serving_bound["bound_ms"],
-                     "bound_by": serving_bound["bound_by"],
+                     "bound_ms": lim["bound_ms"], "bound_by": lim["bound_by"],
                      "library_ms": library_ms})
-    emit("kernels", cases=results, shape=[B, H, Hkv, S, d],
-         flops=serving_bound["flops"], bytes=serving_bound["bytes"],
-         rows=rows, tflops={r["name"]: serving_bound["flops"] / r["ms"] / 1e9
-                            for r in rows},
-         gemma3=gemma, memory=device_memory())
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    return rows
+    return rows, cases, lim
 
 
-def phase_main(rows: list[dict]) -> None:
+def phase_serving(rows: list[dict], arch: str, prefix: str = "") -> None:
+    """The serving main path of ``arch`` at full width, ``N_LAYERS``
+    deep; its phases' names start with ``prefix``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.estimator import XMemEstimator
@@ -335,7 +388,7 @@ def phase_main(rows: list[dict]) -> None:
     from repro_torch.models import model as M
     from repro_torch.train.train_step import make_prefill_step
 
-    base = get_config("qwen3-32b")
+    base = get_config(arch)
     cfg = dataclasses.replace(
         base, n_layers=N_LAYERS,
         attention=dataclasses.replace(base.attention, impl="flash"))
@@ -354,8 +407,9 @@ def phase_main(rows: list[dict]) -> None:
         srv.make_prefill_fn(cfg), M.abstract_params(cfg), cache_abs,
         srv.prompt_specs(cfg, batch, PROMPT_LEN))
     dec_est = gate["decode"]
-    emit("gate", config=cfg.name, n_layers=cfg.n_layers, capacity=capacity,
-         seconds=gate_s, batch=batch, candidates=gate["candidates"],
+    emit(f"{prefix}gate", config=cfg.name, n_layers=cfg.n_layers,
+         capacity=capacity, seconds=gate_s, batch=batch,
+         candidates=gate["candidates"],
          prefill_estimate=pre_est.peak_bytes,
          prefill_tensor_estimate=pre_est.peak_tensor_bytes,
          decode_estimate=dec_est.peak_bytes,
@@ -370,7 +424,8 @@ def phase_main(rows: list[dict]) -> None:
     launches = fa.launches
     by_kernel = dict(fa.launches_by_kernel)
     for row in rows:
-        row["launches"] = by_kernel[row["name"].rsplit("_", 1)[1]]
+        if row["path"] == arch:
+            row["launches"] = by_kernel[row["name"].rsplit("_", 1)[1]]
     want = cfg.n_layers * REQUESTS
     if launches != want or by_kernel["sm90"] != want:
         raise AssertionError(f"kernel launched {by_kernel}, expected "
@@ -410,21 +465,28 @@ def phase_main(rows: list[dict]) -> None:
                                       - measured.allocated)
                 / measured.allocated}
 
-    emit("main", batch=batch, prompt_len=PROMPT_LEN, tokens=DECODE_TOKENS,
-         requests=REQUESTS, kernel_launches=launches,
+    phases = {"prefill": vs(res.peaks["prefill"], pre_est),
+              "decode": vs(res.peaks["decode"], dec_est)}
+    emit(f"{prefix}main", batch=batch, prompt_len=PROMPT_LEN,
+         tokens=DECODE_TOKENS, requests=REQUESTS, kernel_launches=launches,
          launches_by_kernel=by_kernel,
          prefill_ms=[s * 1e3 for s in res.prefill_s],
          decode_s=res.decode_s,
          decode_tok_per_s=[res.decode_tok_per_s(r)
                            for r in range(REQUESTS)],
-         prefill=vs(res.peaks["prefill"], pre_est),
-         decode=vs(res.peaks["decode"], dec_est),
-         finite_logits=True, first_tokens=toks[-1][:2, :8].tolist(),
+         **phases, finite_logits=True, first_tokens=toks[-1][:2, :8].tolist(),
          memory=device_memory())
+    for name, got in phases.items():
+        within(f"{cfg.name} {name} reserved", got["rel_err_reserved"],
+               RESERVED_TOL)
+        within(f"{cfg.name} {name} allocated", got["rel_err_allocated"],
+               SERVING_ALLOCATED_TOL)
     del res
     torch.cuda.empty_cache()
-    phase_requests(cfg, params, batch)
-    phase_profile(cfg, params, batch)
+    phase_requests(cfg, params, batch, prefix)
+    phase_profile(cfg, params, batch, prefix)
+    if cfg.moe is not None:
+        phase_experts(cfg, params, batch, prefix)
 
     # the kernel path against the dense path at batch 1, same weights
     dense = dataclasses.replace(
@@ -435,18 +497,16 @@ def phase_main(rows: list[dict]) -> None:
     ld = make_prefill_step(dense)(params, {"tokens": prompt}).float()
     rel = ((lf - ld).abs().max() / ld.abs().max()).item()
     same = bool((lf.argmax(-1) == ld.argmax(-1)).all().item())
-    emit("parity", flash_vs_dense_rel=rel, tol=LOGITS_REL_TOL,
+    emit(f"{prefix}parity", flash_vs_dense_rel=rel, tol=LOGITS_REL_TOL,
          same_argmax=same, finite=bool(torch.isfinite(lf).all().item()),
          memory=device_memory())
     if not rel < LOGITS_REL_TOL:
         raise AssertionError(f"flash vs dense logits: rel {rel}")
 
 
-def phase_requests(cfg, params, batch: int) -> None:
+def phase_requests(cfg, params, batch: int, prefix: str = "") -> None:
     """The card's allocator requests during one prefill against the
     trace's, aligned by size: what the CPU trace misses or adds."""
-    import difflib
-
     import torch
     from repro_torch.core.estimator import XMemEstimator
     from repro_torch.core.baselines.directprobe import measured_peak
@@ -469,15 +529,8 @@ def phase_requests(cfg, params, batch: int) -> None:
         srv.make_prompts(cfg, batch, PROMPT_LEN, seed=300)).cuda()
     got = measured_peak(make_prefill_step(cfg), params, {"tokens": prompt},
                         history=True)
-    card_only, trace_only = [], []
-    matcher = difflib.SequenceMatcher(None, [s for s, _ in traced],
-                                      [s for s, _ in got.allocs],
-                                      autojunk=False)
-    for tag, i1, i2, j1, j2 in matcher.get_opcodes():
-        if tag != "equal":
-            trace_only += traced[i1:i2]
-            card_only += got.allocs[j1:j2]
-    emit("requests", card=len(got.allocs), trace=len(traced),
+    card_only, trace_only = align_requests(traced, got.allocs)
+    emit(f"{prefix}requests", card=len(got.allocs), trace=len(traced),
          card_only=len(card_only), trace_only=len(trace_only),
          card_only_bytes=sum(s for s, _ in card_only),
          trace_only_bytes=sum(s for s, _ in trace_only),
@@ -485,7 +538,126 @@ def phase_requests(cfg, params, batch: int) -> None:
          memory=device_memory())
 
 
-def phase_profile(cfg, params, batch: int) -> None:
+def align_requests(traced, card) -> tuple[list, list]:
+    """Two request streams, ``(bytes, where)`` each, aligned by size:
+    the card's requests the trace lacks, and the trace's the card does
+    not make."""
+    import difflib
+    card_only, trace_only = [], []
+    matcher = difflib.SequenceMatcher(None, [s for s, _ in traced],
+                                      [s for s, _ in card], autojunk=False)
+    for tag, i1, i2, j1, j2 in matcher.get_opcodes():
+        if tag != "equal":
+            trace_only += traced[i1:i2]
+            card_only += card[j1:j2]
+    return card_only, trace_only
+
+
+def phase_experts(cfg, params, batch: int, prefix: str) -> None:
+    """The tokens each expert took, and the assignments dropped over
+    capacity, in each MoE layer of a prefill of the first request's
+    prompt: counted from the dispatch's own token map (an unmeasured
+    run; the count adds device work the measured runs do not have)."""
+    import torch
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import moe
+    from repro_torch.train.train_step import make_prefill_step
+
+    dispatch = moe._dispatch_one_group
+    taken = []
+
+    def counting(xg, topi, topv, n_experts, capacity):
+        out = dispatch(xg, topi, topv, n_experts, capacity)
+        taken.append((out[1] < xg.shape[0]).sum(dim=1))
+        return out
+    prompt = torch.from_numpy(
+        srv.make_prompts(cfg, batch, PROMPT_LEN, seed=0)).cuda()
+    moe._dispatch_one_group = counting
+    try:
+        make_prefill_step(cfg)(params, {"tokens": prompt})
+    finally:
+        moe._dispatch_one_group = dispatch
+    per_layer = torch.stack(taken).cpu().tolist()
+    assigned = batch * PROMPT_LEN * cfg.moe.top_k
+    dropped = [assigned - sum(t) for t in per_layer]
+    emit(f"{prefix}experts", batch=batch, tokens=batch * PROMPT_LEN,
+         top_k=cfg.moe.top_k, capacity=moe.expert_capacity(
+             batch * PROMPT_LEN, cfg.moe),
+         taken_per_layer=per_layer, dropped_per_layer=dropped,
+         dropped_share=sum(dropped) / (assigned * len(per_layer)))
+
+
+def phase_moe_layer() -> None:
+    """One phi3.5-moe MoE layer at full width: the card's allocator
+    requests, each with the ATen function that made it, against the
+    trace's, for the serving forward (the prefill's tokens) and for a
+    training forward and backward (a training batch's tokens)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.baselines.directprobe import measured_peak
+    from repro_torch.core.events import peak_live_bytes
+    from repro_torch.core.tracer import trace_fn
+    from repro_torch.models import moe
+
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lp = moe.moe_params(gen, cfg.d_model, cfg.d_ff, cfg.moe.num_experts,
+                        cfg.dtype, device="cuda")
+
+    def serve(x, p):
+        with torch.no_grad():
+            return moe.moe_ffn(x, p, cfg.moe)
+
+    def train(x, p):
+        x = x.detach().requires_grad_()
+        p = {n: t.detach().requires_grad_() for n, t in p.items()}
+        y = moe.moe_ffn(x, p, cfg.moe)
+        return torch.autograd.grad(y.float().square().mean(),
+                                   [x, *p.values()])
+    out = {}
+    for name, fn, tokens in (("serve", serve, 8 * PROMPT_LEN),
+                             ("train", train, 2 * TRAIN_SEQ)):
+        x = torch.randn((1, tokens, cfg.d_model), generator=gen,
+                        device="cuda", dtype=cfg.dtype)
+        _, tr, _ = trace_fn(fn, x, lp, grad=name == "train")
+        traced = [(b.size, b.op) for b in sorted(tr.blocks.values(),
+                                                 key=lambda b: b.alloc_t)
+                  if b.op != "input"]
+        got = measured_peak(fn, x, lp, history=True, stacks="all")
+        card_only, trace_only = align_requests(traced, got.allocs)
+        out[name] = {"tokens": tokens, "card": len(got.allocs),
+                     "trace": len(traced), "card_only": card_only,
+                     "trace_only": trace_only,
+                     "measured_allocated": got.allocated,
+                     "trace_peak": peak_live_bytes(tr.lifecycles())}
+        del x, got
+    # the dispatch's sort alone, at lengths around and beyond the path's:
+    # the card's requests inside the op against the tracer's
+    # (``tracer._sort_temps``)
+    sorts = []
+    for n in (4096, 4097, 65536, 100_003):
+        keys = torch.randint(0, cfg.moe.num_experts, (n,), generator=gen,
+                             device="cuda")
+        for stable in (True, False):
+            def sort(k, stable=stable):
+                return torch.sort(k, stable=stable)
+            _, tr, _ = trace_fn(sort, keys)
+            traced = sorted(b.size for b in tr.blocks.values()
+                            if b.op != "input")
+            card = sorted(size for size, _ in measured_peak(
+                sort, keys, history=True).allocs)
+            sorts.append({"n": n, "stable": stable, "card": card,
+                          "trace": traced, "match": card == traced})
+    emit("moe_layer", config=cfg.name, **out, sort=sorts,
+         memory=device_memory())
+    if not all(s["match"] for s in sorts):
+        raise AssertionError("the tracer's sort buffers differ from the "
+                             "card's (tracer._sort_temps)")
+    del lp
+    torch.cuda.empty_cache()
+
+
+def phase_profile(cfg, params, batch: int, prefix: str = "") -> None:
     """Device time of one warm prefill at the admitted batch, by kernel,
     from ``torch.profiler``; busy share = kernel time / wall time."""
     import torch
@@ -521,16 +693,18 @@ def phase_profile(cfg, params, batch: int) -> None:
     for name, (ms, _) in kernels.items():
         buckets[bucket(name)] = buckets.get(bucket(name), 0.0) + ms
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    emit("profile", batch=batch, wall_ms=wall_ms, device_ms=device_ms,
+    emit(f"{prefix}profile", batch=batch, wall_ms=wall_ms,
+         device_ms=device_ms,
          busy_share=device_ms / wall_ms if wall_ms else None,
          by_bucket_ms=buckets,
          top=[{"kernel": k[:90], "ms": ms, "count": n}
               for k, (ms, n) in top], memory=device_memory())
 
 
-def phase_train() -> None:
-    """The training path, in a process of its own as a training job is:
-    gate on the CPU, then steps on the card."""
+def phase_train(job: str) -> None:
+    """The training path of ``TRAIN_JOBS[job]``, in a process of its own
+    as a training job is: gate on the CPU, then steps on the card. Its
+    phases' names start with ``moe_`` for the MoE job."""
     import math
 
     import torch
@@ -543,20 +717,23 @@ def phase_train() -> None:
     from repro_torch.models import model as M
     from repro_torch.train import TrainPolicy
 
+    prefix = "" if job == "dense" else f"{job}_"
+    arch, n_layers = TRAIN_JOBS[job]
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     memory = device_memory()
-    cfg = dataclasses.replace(get_config("qwen3-32b"), n_layers=TRAIN_LAYERS)
     policy = TrainPolicy()          # AdamW, clip_norm 1.0, 1 microbatch
     capacity = srv.device_capacity()
     batch, gate = trn.pick_train_batch(cfg, policy, TRAIN_SEQ, capacity,
                                        TRAIN_CANDIDATES)
-    emit("train_gate", config=cfg.name, n_layers=cfg.n_layers,
+    emit(f"{prefix}train_gate", config=cfg.name, n_layers=cfg.n_layers,
          seq_len=TRAIN_SEQ, optimizer=policy.optimizer,
          clip_norm=policy.clip_norm, microbatches=policy.microbatches,
          capacity=capacity, seconds=gate["seconds"],
          trace_cache=gate["trace_cache"], candidates=gate["candidates"],
          batch=batch, memory=memory)
     if batch is None:
-        raise AssertionError(f"no training batch fits: {gate['candidates']}")
+        raise AssertionError(f"no training batch fits {cfg.name} at "
+                             f"{n_layers} layers")
     rep = gate["report"]
     shape = smoke_shape(TRAIN_SEQ, batch)
     params = M.init_params(cfg, 0, device="cuda")
@@ -568,6 +745,8 @@ def phase_train() -> None:
     run = got.out
     if not all(math.isfinite(x) for x in run.losses):
         raise AssertionError(f"non-finite training loss {run.losses}")
+    rel_reserved = (rep.peak_bytes - got.reserved) / got.reserved
+    rel_allocated = (rep.peak_tensor_bytes - got.allocated) / got.allocated
     comp = rep.composition      # requests of the composed iterations
     traced = collections.Counter()
     for blocks, n in ((comp.prefix, 1), (comp.cycle, comp.n_cycles),
@@ -575,16 +754,15 @@ def phase_train() -> None:
         for b in blocks:
             if b.op != "init":
                 traced[b.size] += n
-    emit("train", batch=batch, seq_len=TRAIN_SEQ, steps=TRAIN_STEPS,
+    emit(f"{prefix}train", config=cfg.name, n_layers=cfg.n_layers,
+         batch=batch, seq_len=TRAIN_SEQ, steps=TRAIN_STEPS,
          kernel_launches=launches, losses=run.losses,
          step_ms=[x * 1e3 for x in run.step_s],
          tokens_per_s=batch * TRAIN_SEQ * TRAIN_STEPS / sum(run.step_s),
          estimate=rep.peak_bytes, tensor_estimate=rep.peak_tensor_bytes,
          persistent=rep.persistent_bytes,
          measured_reserved=got.reserved, measured_allocated=got.allocated,
-         rel_err_reserved=(rep.peak_bytes - got.reserved) / got.reserved,
-         rel_err_allocated=(rep.peak_tensor_bytes - got.allocated)
-         / got.allocated,
+         rel_err_reserved=rel_reserved, rel_err_allocated=rel_allocated,
          card_allocs=got.n_allocs, trace_allocs=sum(traced.values()),
          card_alloc_retries=got.n_alloc_retries,
          card_stream_sim=replay_card_stream(
@@ -594,7 +772,9 @@ def phase_train() -> None:
          sim_segments_mib=sorted(round(s["size"] / 2**20, 1)
                                  for s in rep.sim.segments),
          phase_peaks=rep.breakdown["phase_peaks"], memory=device_memory())
-    emit_train_requests(got.allocs, traced)
+    emit_train_requests(got.allocs, traced, prefix)
+    within(f"{cfg.name} training reserved", rel_reserved, RESERVED_TOL)
+    within(f"{cfg.name} training allocated", rel_allocated, ALLOCATED_TOL)
 
 
 def replay_card_stream(events, resident, capacity: int) -> dict:
@@ -618,7 +798,7 @@ def replay_card_stream(events, resident, capacity: int) -> dict:
     return {"reserved": sim.peak_reserved, "allocated": sim.peak_allocated}
 
 
-def emit_train_requests(card_allocs, traced) -> None:
+def emit_train_requests(card_allocs, traced, prefix: str = "") -> None:
     """The request sizes the card made in the measured window that the
     composed trace did not, and the reverse (multisets of sizes: a
     window is too long to align), with where the card made them."""
@@ -632,7 +812,7 @@ def emit_train_requests(card_allocs, traced) -> None:
         return [[size, n, where.get(size, "?")] if with_where
                 else [size, n] for size, n in rows]
     card_only, trace_only = card - traced, traced - card
-    emit("train_requests", card=sum(card.values()),
+    emit(f"{prefix}train_requests", card=sum(card.values()),
          trace=sum(traced.values()),
          card_only=sum(card_only.values()),
          trace_only=sum(trace_only.values()),
@@ -649,19 +829,22 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401 — fails outside a checkout
-    if sys.argv[1:] == ["--train"]:
-        phase_train()
+    if sys.argv[1:2] == ["--train"] and len(sys.argv) == 3:
+        phase_train(sys.argv[2])
         return 0
     info = phase_device()
     phase_build()
     rows = phase_kernels()
-    phase_main(rows)
-    # the training job gets a process of its own, as it would: a fresh
+    phase_serving(rows, "qwen3-32b")
+    phase_moe_layer()
+    phase_serving(rows, MOE_ARCH, "moe_")
+    # each training job gets a process of its own, as it would: a fresh
     # allocator whose first iteration makes cuBLAS's workspaces; this
     # process keeps only its context and workspace on the card
     torch.cuda.empty_cache()
-    subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                    "--train"], check=True, timeout=900)
+    for job in TRAIN_JOBS:
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--train", job], check=True, timeout=450)
     print(json.dumps({"kernels": rows}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

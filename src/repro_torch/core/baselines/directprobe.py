@@ -37,7 +37,8 @@ class MeasuredPeak:
     n_alloc_retries: int          # failed cudaMallocs retried after the
                                   # allocator released cached segments
     # with ``history=True``: every allocator request of the step, in
-    # order, as (block bytes, innermost "file:line" of this package), and
+    # order, as (block bytes, innermost "file:line" of this package, and
+    # with ``stacks="all"`` the innermost ``at::native`` function), and
     # the request stream itself, (action, address, bytes) for every
     # "alloc" and "free_completed"
     allocs: list[tuple[int, str]] | None = None
@@ -54,21 +55,25 @@ class MeasuredPeak:
 
 
 def _where(frames) -> str:
-    for f in frames:
-        if "repro_torch" in f["filename"]:
-            return f"{f['filename'].rsplit('/', 1)[-1]}:{f['line']}"
-    return "?"
+    here = next((f"{f['filename'].rsplit('/', 1)[-1]}:{f['line']}"
+                 for f in frames if "repro_torch" in f["filename"]), "?")
+    native = next((f["name"] for f in frames
+                   if "at::native::" in f.get("name", "")), None)
+    return here if native is None else f"{here} {native[:160]}"
 
 
 def measured_peak(step: Callable, *args, device=None,
-                  history: bool = False) -> MeasuredPeak:
+                  history: bool = False,
+                  stacks: str = "python") -> MeasuredPeak:
     """Run ``step(*args)`` once on the card and return its peaks.
 
     Cached free blocks are released first, so the peak counts what the
     resident inputs hold plus what the step itself needs. ``history``
-    records the allocator's requests with their Python stacks (slower;
-    for comparing the card's request stream with the trace's)."""
-    return _measure(lambda: step(*args), device, history)
+    records the allocator's requests with their stacks (slower; for
+    comparing the card's request stream with the trace's); ``stacks``
+    is ``"python"`` or ``"all"`` (C++ frames too, which name the ATen
+    function that made a request inside an op)."""
+    return _measure(lambda: step(*args), device, history, stacks)
 
 
 def measured_training(fwd_bwd: Callable, update_fn: Callable,
@@ -89,7 +94,8 @@ def measured_training(fwd_bwd: Callable, update_fn: Callable,
                     device, history)
 
 
-def _measure(run: Callable, device, history: bool) -> MeasuredPeak:
+def _measure(run: Callable, device, history: bool,
+             stacks: str = "python") -> MeasuredPeak:
     """``run()`` on the card between a reset of the peak statistics and
     a read of them (and of the allocator snapshot)."""
     if not torch.cuda.is_available():
@@ -104,7 +110,7 @@ def _measure(run: Callable, device, history: bool) -> MeasuredPeak:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     if history:
-        torch.cuda.memory._record_memory_history(stacks="python",
+        torch.cuda.memory._record_memory_history(stacks=stacks,
                                                  device=device)
     before = torch.cuda.memory_stats(device)
     t0 = time.perf_counter()

@@ -71,16 +71,35 @@ def _bool_sum_temps(x, *args, **kwargs):
     return [x.numel() * 8] if x.dtype == torch.bool else []
 
 
+def _sort_temps(x, *args, **kwargs):
+    """CUDA's sort (stable or not: one kernel) of the 1-D int64 keys the
+    MoE dispatch sorts: an int64 identity permutation (``8 n`` B), and,
+    past 4096 elements (shorter ones sort in place in shared memory),
+    cub's radix-sort temp storage: an alternate key and value buffer
+    (``8 n`` B each, 256-B aligned), 1 KiB of look-back state for each
+    tile of 4608 elements, 16 KiB of digit bins, 256 B of counters and
+    255 B of alignment slack."""
+    n = x.numel()
+    if x.ndim != 1 or x.dtype != torch.int64:
+        return []
+    if n <= 4096:
+        return [8 * n]
+    alt = -(-8 * n // 256) * 256
+    return [8 * n, 2 * alt + 1024 * -(-n // 4608) + 16384 + 256 + 255]
+
+
 # Device buffers that torch's CUDA kernels allocate inside an op and free
 # before it returns: the fake kernels allocate only the outputs, so the
 # tracer adds these after them. Each rule gives the buffers' bytes from
 # the op's arguments. Read off the card's allocator history (torch
 # 2.11); not modeled: the staging buffers of split reductions, which
-# depend on the launch configuration.
+# depend on the launch configuration, and the embedding backward's.
 _KERNEL_TEMPS = {
     torch.ops.aten._softmax_backward_data.default: _softmax_backward_temps,
     torch.ops.aten.sum.default: _bool_sum_temps,
     torch.ops.aten.sum.dim_IntList: _bool_sum_temps,
+    torch.ops.aten.sort.stable: _sort_temps,
+    torch.ops.aten.sort.default: _sort_temps,
 }
 
 

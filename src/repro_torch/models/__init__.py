@@ -1,7 +1,7 @@
-"""Model zoo of the port: the dense decoder family."""
-from . import convert, layers, model
+"""Model zoo of the port: the dense and MoE decoder families."""
+from . import convert, layers, model, moe
 from .model import (abstract_params, backbone, decode_step, init_cache,
                     init_params, logits_fn, loss_fn)
 
-__all__ = ["convert", "layers", "model", "abstract_params", "backbone",
+__all__ = ["convert", "layers", "model", "moe", "abstract_params", "backbone",
            "decode_step", "init_cache", "init_params", "logits_fn", "loss_fn"]

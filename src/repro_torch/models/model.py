@@ -1,20 +1,24 @@
-"""Decoder LM, dense family (PyTorch port of ``repro.models.model``).
+"""Decoder LM, dense and MoE families (PyTorch port of
+``repro.models.model``).
 
 Parameters are a plain dict with the JAX pytree's key paths and the
 per-layer weights stacked ``[L, ...]``, so a JAX parameter tree converts
 name for name (``convert.py``) and parameter bytes match byte for byte.
 The JAX package's ``lax.scan`` over the stack is a Python loop over
-layer views here, each layer checkpointed per ``cfg.remat`` when it
-trains. Training: ``loss_fn``; its gradients keep the stacked shapes
-(``_LayerSlice``). Serving: ``init_cache`` + ``decode_step`` decode one
-token against a KV cache that is updated in place.
+layer views here, each layer (each dense/MoE pair, when MoE layers
+alternate) checkpointed per ``cfg.remat`` when it trains. Training:
+``loss_fn``; its gradients keep the stacked shapes (``_LayerSlice``).
+Serving: ``init_cache`` + ``decode_step`` decode one token against a KV
+cache that is updated in place.
 
-Only the dense family is ported (gemma3's local:global flags included).
-MoE, hybrid, SSM, VLM and audio raise ``NotImplementedError``: they are
-ROADMAP Queue 1 item 11.
+The dense family (gemma3's local:global flags included) and the MoE
+family (``moe.py``; every layer MoE, or dense/MoE pairs when
+``every_n_layers`` is 2) are ported. Hybrid, SSM, VLM and audio raise
+``NotImplementedError``: they are ROADMAP Queue 1 item 11.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -23,39 +27,70 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from . import moe as moe_mod
 from .layers import (attention_block, attention_block_params,
                      attention_decode_block, cross_entropy_loss, mlp_params,
                      normal_init, rms_norm, swiglu)
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe is not None:
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP Queue 1 item 11); the port runs the dense family")
+            f"(ROADMAP Queue 1 item 11); the port runs the dense and MoE "
+            f"families")
+
+
+def _is_moe_layer(cfg: ModelConfig, i: int) -> bool:
+    return (cfg.moe is not None
+            and i % cfg.moe.every_n_layers == cfg.moe.every_n_layers - 1)
+
+
+def _alternating(cfg: ModelConfig) -> bool:
+    """MoE layers alternate with dense ones: the layers are stacked as
+    ``"dense"`` and ``"moe"`` halves of ``n_layers // 2`` pairs."""
+    return cfg.moe is not None and cfg.moe.every_n_layers > 1
 
 
 # ---------------------------------------------------------------------------
 # parameter init
+def _layer_params(cfg: ModelConfig, gen, device, n: int,
+                  moe_layer: bool) -> dict:
+    """``n`` stacked layers' weights: a MoE layer has ``"moe"`` (f32
+    router) and no ``"mlp"``."""
+    dt, D = cfg.dtype, cfg.d_model
+    p = {
+        "ln1": torch.ones((n, D), dtype=dt, device=device),
+        "ln2": torch.ones((n, D), dtype=dt, device=device),
+        "attn": attention_block_params(
+            gen, D, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dt,
+            qk_norm=cfg.attention.qk_norm, device=device, lead=(n,)),
+    }
+    if moe_layer:
+        p["moe"] = moe_mod.moe_params(gen, D, cfg.d_ff, cfg.moe.num_experts,
+                                      dt, device=device, lead=(n,))
+    elif cfg.d_ff:
+        p["mlp"] = mlp_params(gen, D, cfg.d_ff, dt, device=device,
+                              lead=(n,))
+    return p
+
+
 def _build_params(cfg: ModelConfig, gen, device) -> dict:
-    _require_dense(cfg)
+    _require_ported(cfg)
     dt, D, V, L = cfg.dtype, cfg.d_model, cfg.padded_vocab, cfg.n_layers
 
     params: dict = {"final_norm": torch.ones((D,), dtype=dt, device=device),
                     "embed": normal_init(gen, (V, D), 0.02, dt, device)}
     if not cfg.tie_embeddings:
         params["head"] = normal_init(gen, (D, V), 0.02, dt, device)
-    layers = {
-        "ln1": torch.ones((L, D), dtype=dt, device=device),
-        "ln2": torch.ones((L, D), dtype=dt, device=device),
-        "attn": attention_block_params(
-            gen, D, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dt,
-            qk_norm=cfg.attention.qk_norm, device=device, lead=(L,)),
-    }
-    if cfg.d_ff:
-        layers["mlp"] = mlp_params(gen, D, cfg.d_ff, dt, device=device,
-                                   lead=(L,))
-    params["layers"] = layers
+    if _alternating(cfg):
+        n_pairs = L // cfg.moe.every_n_layers
+        params["layers"] = {
+            "dense": _layer_params(cfg, gen, device, n_pairs, False),
+            "moe": _layer_params(cfg, gen, device, n_pairs, True)}
+    else:
+        params["layers"] = _layer_params(cfg, gen, device, L,
+                                         cfg.moe is not None)
     return params
 
 
@@ -128,9 +163,16 @@ def _decoder_layer(x, lp, cfg: ModelConfig, *, is_global=None,
         rms_norm(x, lp["ln1"]), lp["attn"], cfg.attention, cfg.n_heads,
         cfg.n_kv_heads, cfg.hd, positions=positions, is_global=is_global,
         window=window)
-    x = x + h
+    return _ffn(x + h, lp, cfg.moe)
+
+
+def _ffn(x, lp, moe_cfg):
+    """The layer's residual FFN: MoE, SwiGLU, or none."""
+    if "moe" in lp:
+        return x + moe_mod.moe_ffn(rms_norm(x, lp["ln2"]), lp["moe"],
+                                   moe_cfg)
     if "mlp" in lp:
-        x = x + swiglu(rms_norm(x, lp["ln2"]), **lp["mlp"])
+        return x + swiglu(rms_norm(x, lp["ln2"]), **lp["mlp"])
     return x
 
 
@@ -160,18 +202,28 @@ def _remat(fn, cfg: ModelConfig):
 
 def backbone(params, x, cfg: ModelConfig, positions=None):
     """x: [B, S, D] embedded inputs -> final hidden states."""
-    _require_dense(cfg)
+    _require_ported(cfg)
+    layers = params["layers"]
+    if _alternating(cfg):
+        def pair(h, dense_lp, moe_lp):
+            h = _decoder_layer(h, dense_lp, cfg, positions=positions)
+            return _decoder_layer(h, moe_lp, cfg, positions=positions)
+        body = _remat(pair, cfg)
+        for p in range(cfg.n_layers // cfg.moe.every_n_layers):
+            x = body(x, layer_params(layers["dense"], p),
+                     layer_params(layers["moe"], p))
+        return rms_norm(x, params["final_norm"])
     flags = _global_flags(cfg)
     layer = _remat(_decoder_layer, cfg)
     for i in range(cfg.n_layers):
-        x = layer(x, layer_params(params["layers"], i), cfg,
+        x = layer(x, layer_params(layers, i), cfg,
                   is_global=None if flags is None else flags[i],
                   positions=positions)
     return rms_norm(x, params["final_norm"])
 
 
 def embed_inputs(params, batch: dict, cfg: ModelConfig):
-    _require_dense(cfg)
+    _require_ported(cfg)
     return F.embedding(batch["tokens"], params["embed"])
 
 
@@ -194,28 +246,43 @@ def loss_fn(params, batch: dict, cfg: ModelConfig):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> dict:
     """Persistent decode state: stacked KV caches ``[L, B, max_len, Hkv,
-    hd]`` in ``cfg.dtype``."""
-    _require_dense(cfg)
+    hd]`` in ``cfg.dtype`` (alternating dense/MoE layers included: layer
+    ``2p`` is pair ``p``'s dense layer, ``2p + 1`` its MoE layer)."""
+    _require_ported(cfg)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
 
+def _decode_layers(params, cfg: ModelConfig) -> list[dict]:
+    """Every layer's weights in cache order."""
+    layers = params["layers"]
+    if _alternating(cfg):
+        return [layer_params(layers["moe" if _is_moe_layer(cfg, i)
+                                    else "dense"], i // 2)
+                for i in range(cfg.n_layers)]
+    return [layer_params(layers, i) for i in range(cfg.n_layers)]
+
+
 def decode_step(params, cache: dict, batch: dict, cache_len: int,
                 cfg: ModelConfig):
     """One new token for every sequence. Returns ``(logits, cache)``;
-    position ``cache_len`` of ``cache`` is written in place."""
+    position ``cache_len`` of ``cache`` is written in place. MoE layers
+    dispatch the step's tokens as one group."""
     x = embed_inputs(params, batch, cfg)       # [B, 1, D]
     window = cfg.attention.sliding_window
     flags = _global_flags(cfg)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+    moe_cfg = _decode_moe(cfg)
+    for i, lp in enumerate(_decode_layers(params, cfg)):
         a_out, _, _ = attention_decode_block(
             rms_norm(x, lp["ln1"]), lp["attn"], cfg.attention, cfg.n_heads,
             cfg.n_kv_heads, cfg.hd, cache["k"][i], cache["v"][i], cache_len,
             window=window, is_global=None if flags is None else flags[i])
-        x = x + a_out
-        if "mlp" in lp:
-            x = x + swiglu(rms_norm(x, lp["ln2"]), **lp["mlp"])
+        x = _ffn(x + a_out, lp, moe_cfg)
     h = rms_norm(x, params["final_norm"])
     return logits_fn(params, h, cfg), cache
+
+
+def _decode_moe(cfg: ModelConfig):
+    return (None if cfg.moe is None
+            else dataclasses.replace(cfg.moe, num_groups=1))

@@ -117,12 +117,14 @@ print("N", sum(n.startswith("repro_torch") for n in sys.modules))
 print("HAVE", sorted(n for n in sys.modules if n.startswith("repro_torch.")))
 """
 
-# the training slice's modules, which the walk above must have imported
+# the training and MoE slices' modules, which the walk above must have
+# imported
 _TRAINING_MODULES = (
     "repro_torch.core.analyzer", "repro_torch.core.cache",
     "repro_torch.core.metrics", "repro_torch.train.optimizer",
     "repro_torch.train.data", "repro_torch.train.train_step",
-    "repro_torch.launch.train", "repro_torch.examples.quickstart")
+    "repro_torch.launch.train", "repro_torch.examples.quickstart",
+    "repro_torch.models.moe")
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
