@@ -6,14 +6,20 @@
 Phases, each printing one JSON line; any failure raises and exits
 non-zero:
 
+0. the four training jobs of phases 9-12 start at once, each in a
+   process of its own that traces its gate's first two candidates on
+   the CPU (no CUDA call) while this process uses the card, on the
+   other half of the CPU cores (``cpus``), then waits for its turn on
+   the card;
 1. device  — the card (``nvidia-smi`` name and power limit), torch/CUDA;
 2. build   — every kernel under ``src/repro_torch/csrc`` with nvcc;
 3. kernels — each kernel against its plain PyTorch version on the card
    (the cases of ``tests/test_kernels.py``, head dim 256, gemma3-4b's
    attention shape with and without its window, each through the kernel
-   that ``route`` picks; then both kernels at qwen3-32b's serving shape
-   and the sm90 kernel at phi3.5-moe's), and their times beside the
-   plain version, a library call and the bound;
+   that ``route`` picks; then both kernels at qwen3-32b's serving shape,
+   the sm90 kernel at phi3.5-moe's, and at kimi-k2's head dim 112
+   through the model-layout wrapper, which pads it to 128), and their
+   times beside the plain version, a library call and the bound;
 4. main    — qwen3-32b at full width, depth cut to 8 layers: the xMem
    serving gate (``pick_batch``, traced on the CPU), then ``serve`` on
    the card (two requests of 2048-token prompts, 16 decoded tokens
@@ -26,12 +32,22 @@ non-zero:
 5. moe_layer — one phi3.5-moe MoE layer at full width: the card's
    allocator requests (with the ATen function that made each) against
    the trace's, for the serving forward and for a training forward and
-   backward: what the CPU trace misses inside the dispatch's ops;
+   backward: what the CPU trace misses inside the dispatch's ops; and
+   attn_layer, the same for the chunked attention's training forward
+   and backward at a 4096-token sequence;
 6. moe_main — the same serving path for phi3.5-moe-42b-a6.6b at full
    width, depth cut to 8 layers (``moe_gate``, ``moe_main``,
    ``moe_requests``, ``moe_profile``, ``moe_parity``), and the tokens
    each expert took and dropped at the prefill (``moe_experts``);
-7. train   — in a child process of its own (``--train dense``), as a
+7. vlm_main — the same for internvl2-1b at full width and full depth
+   (24 layers): 256 patch embeddings before a 2048-token prompt, the
+   gate over batches 256 down to 1 (``vlm_*``), the sm90 kernel held
+   against the plain version at the admitted batch's shape
+   (``vlm_kernel``);
+8. audio_main — the same for musicgen-medium at full width and full
+   depth (48 layers): prompts of 2048 codes of 4 codebooks, greedy
+   decoding per codebook (``audio_*``);
+9. train   — in a child process of its own (``--train dense``), as a
    training job runs: qwen3-32b at full width, depth cut to 4 layers,
    sequences of 4096: the xMem training gate (``pick_train_batch`` over
    batches 8, 4, 2, 1, traced on the CPU; ``train_gate``), then 3 AdamW
@@ -41,11 +57,18 @@ non-zero:
    request stream replayed through the allocator simulation), and the
    window's allocator requests set against the trace's
    (``train_requests``);
-8. moe_train — the same in a child of its own (``--train moe``) for
+10. moe_train — the same in a child of its own (``--train moe``) for
    phi3.5-moe at full width, sequences of 4096, depth cut to 3 layers
-   (``moe_train_gate``, ``moe_train``, ``moe_train_requests``). The
-   training paths launch neither attention kernel: they train through
-   the chunked attention, as the JAX package does.
+   (``moe_train_gate``, ``moe_train``, ``moe_train_requests``);
+11. vlm_train — the same for internvl2-1b at full width and depth
+   (``--train vlm``), then ``vlm_ckpt``: its final parameters and AdamW
+   state saved with the port's ``CheckpointManager`` to a temporary
+   directory, restored into fresh card tensors and held to the trained
+   ones byte for byte;
+12. audio_train — the same for musicgen-medium at full width, depth cut
+   to 24 layers (``--train audio``). The training paths launch neither
+   attention kernel: they train through the chunked attention, as the
+   JAX package does.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
@@ -56,6 +79,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -73,21 +97,42 @@ PROMPT_LEN = 2048
 DECODE_TOKENS = 16
 REQUESTS = 2
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+VLM_ARCH = "internvl2-1b"
+AUDIO_ARCH = "musicgen-medium"
 # serving paths: arch -> (B, H, Hkv, S, d) of its prefill attention, and
 # the kernels held against the plain version at that shape
 SERVING_SHAPES = {"qwen3-32b": ((8, 64, 8, PROMPT_LEN, 128), ("sm90", "simt")),
                   MOE_ARCH: ((8, 32, 8, PROMPT_LEN, 128), ("sm90",))}
+# the 1B serving paths at full depth: arch -> (phase prefix, max_len,
+# prompt positions). internvl2's prompt is its 256 patches and 2048
+# tokens; its cache holds them and the decoded tokens. Their kernel rows
+# are taken at the batch their gate admits, from these candidates
+FULL_DEPTH_SERVING = {VLM_ARCH: ("vlm_", 2320, 2304),
+                      AUDIO_ARCH: ("audio_", MAX_LEN, PROMPT_LEN)}
+WIDE_CANDIDATES = (256, 128, 64, 32, 16, 8, 4, 2, 1)
 GEMMA_SHAPE = (2, 8, 4, 4096, 256)            # gemma3-4b, head dim 256
 GEMMA_WINDOW = 1024                           # its local layers' window
+KIMI_SHAPE = (8, 64, 8, PROMPT_LEN, 112)      # kimi-k2, head dim 112
 # kernel -> (source, timed launches at the serving shape)
 KERNELS = {"sm90": ("src/repro_torch/csrc/flash_attention_sm90.cu", 20),
            "simt": ("src/repro_torch/csrc/flash_attention.cu", 3)}
-# training jobs: name -> (arch, depth). phi3.5-moe at 4 layers fits only
-# with 0.27 GB to spare, and its gate rejects every batch 0.5 GB lower
-TRAIN_JOBS = {"dense": ("qwen3-32b", 4), "moe": (MOE_ARCH, 3)}
+# the plain version runs over at most this many sequences at once (its
+# f32 scores at the 1B paths' admitted batches would not fit the card)
+PLAIN_BATCH = 8
+# training jobs: name -> (arch, depth, candidates), each list chosen with
+# the CPU gate CLI so that its first candidate is rejected (phi3.5-moe's
+# admits its first) and the second admitted. phi3.5-moe at 4 layers fits
+# only with 0.27 GB to spare, and its gate rejects every batch 0.5 GB
+# lower. One musicgen estimate at 48 layers takes about 180 s of CPU
+# (PERF.md section 4), over the 60 s allowed, so it trains 24
+TRAIN_JOBS = {"dense": ("qwen3-32b", 4, (8, 4, 2, 1)),
+              "moe": (MOE_ARCH, 3, (8, 4, 2, 1)),
+              "vlm": (VLM_ARCH, 24, (16, 8, 4, 2, 1)),
+              "audio": (AUDIO_ARCH, 24, (64, 32, 16, 8, 4, 2, 1))}
 TRAIN_SEQ = 4096            # TRAIN_4K's sequence length
-TRAIN_CANDIDATES = (8, 4, 2, 1)
 TRAIN_STEPS = 3             # the estimator composes 3 iterations
+TRACED_AHEAD = 2            # candidates a training job traces before its turn
+CKPT_JOB = "vlm"            # the job whose final state goes through a checkpoint
 # |flash - dense| / max|dense| on the batch-1 prefill logits, bf16 model:
 # both paths do f32 attention math from the same bf16 q/k/v and round
 # the output to bf16, so they differ by output roundings carried
@@ -102,8 +147,13 @@ ALLOCATED_TOL = 0.01
 SERVING_ALLOCATED_TOL = 0.05
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``t`` is the seconds since this process started."""
+    print(json.dumps({"phase": phase, "t": time.perf_counter() - _T0, **kw}),
+          flush=True)
 
 
 def within(what: str, rel: float, tol: float) -> None:
@@ -311,26 +361,39 @@ def phase_kernels() -> list[dict]:
     # each serving path's shape, in the model layout the path passes: its
     # kernels against the plain version, their times, the library call's
     rows, shapes = [], {}
-    for path, (shape, kernels) in SERVING_SHAPES.items():
+    # kimi-k2 has no path on one card (a layer's experts are 33.8 GB):
+    # its row is the shape alone, and no main path counts its launches
+    for path, (shape, kernels) in (*SERVING_SHAPES.items(),
+                                   ("kimi-k2-1t-a32b",
+                                    (KIMI_SHAPE, ("sm90",)))):
         got, cases, lim = serving_shape_rows(path, shape, kernels, rand,
                                              sdpa)
         rows += got
         results += cases
-        shapes[path] = {"shape": list(shape), "flops": lim["flops"],
-                        "bytes": lim["bytes"],
-                        "tflops": {r["name"]: lim["flops"] / r["ms"] / 1e9
-                                   for r in got}}
+        shapes[path] = shape_summary(shape, got, lim)
     emit("kernels", cases=results, shapes=shapes, rows=rows, gemma3=gemma,
          memory=device_memory())
     return rows
 
 
+def shape_summary(shape, rows, lim) -> dict:
+    return {"shape": list(shape), "flops": lim["flops"],
+            "bytes": lim["bytes"],
+            "tflops": {r["name"]: lim["flops"] / r["ms"] / 1e9
+                       for r in rows}}
+
+
 def serving_shape_rows(path: str, shape, kernels, rand, sdpa):
     """``kernels`` at a serving path's prefill shape (bf16, causal)
     against the plain version: the summary rows, the cases and the
-    bound."""
+    bound. A head dim no kernel takes goes through the model-layout
+    wrapper, which pads it (its row is the kernel ``route`` picks for
+    the padded head dim, timed with the padding); the bound counts the
+    work at the true head dim. The plain version runs over
+    ``PLAIN_BATCH`` sequences at a time."""
     import torch
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
     from repro_torch.kernels.ref import attention_ref
 
     bf16, tol = torch.bfloat16, 2e-2
@@ -339,12 +402,25 @@ def serving_shape_rows(path: str, shape, kernels, rand, sdpa):
     k = rand(B, S, Hkv, d, dtype=bf16)
     v = rand(B, S, Hkv, d, dtype=bf16)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    ref = attention_ref(qt, kt, vt, causal=True)
-    plain_ms = cuda_ms(lambda: attention_ref(qt, kt, vt, causal=True),
-                       reps=2)
+    padded = fa.padded_head_dim(bf16, d) != d
+
+    def run(kernel):
+        if padded:
+            if kernel != fa.route(bf16, fa.padded_head_dim(bf16, d)):
+                raise AssertionError(f"{kernel} is not the padded route")
+            return ops.flash_attention(q, k, v, causal=True).transpose(1, 2)
+        return fa.launch(kernel, qt, kt, vt, causal=True)
+
+    def plain():
+        outs = [attention_ref(qt[i:i + PLAIN_BATCH], kt[i:i + PLAIN_BATCH],
+                              vt[i:i + PLAIN_BATCH], causal=True)
+                for i in range(0, B, PLAIN_BATCH)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+    ref = plain()
+    plain_ms = cuda_ms(plain, reps=2)
     errs, cases = {}, []
     for kernel in kernels:
-        out = fa.launch(kernel, qt, kt, vt, causal=True)
+        out = run(kernel)
         torch.cuda.synchronize()
         errs[kernel] = (out.float() - ref.float()).abs().max().item()
         del out
@@ -362,8 +438,7 @@ def serving_shape_rows(path: str, shape, kernels, rand, sdpa):
     rows = []
     for kernel in kernels:
         source, reps = KERNELS[kernel]
-        ms = cuda_ms(lambda: fa.launch(kernel, qt, kt, vt, causal=True),
-                     reps=reps)
+        ms = cuda_ms(lambda: run(kernel), reps=reps)
         rows.append({"name": f"flash_attention_{kernel}", "route": "cuda",
                      "source": source,
                      "replaces": "src/repro/kernels/flash_attention.py:93",
@@ -377,9 +452,17 @@ def serving_shape_rows(path: str, shape, kernels, rand, sdpa):
     return rows, cases, lim
 
 
-def phase_serving(rows: list[dict], arch: str, prefix: str = "") -> None:
-    """The serving main path of ``arch`` at full width, ``N_LAYERS``
-    deep; its phases' names start with ``prefix``."""
+def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
+                  n_layers: int | None = N_LAYERS, max_len: int = MAX_LEN,
+                  prompt_len: int = PROMPT_LEN, candidates=(8, 4, 2, 1),
+                  kernel_rows: bool = False) -> None:
+    """The serving main path of ``arch`` at full width, ``n_layers``
+    deep (``None``: the config's depth), prompts of ``prompt_len``
+    positions into a cache of ``max_len``, the gate over
+    ``candidates``; its phases' names start with ``prefix``. With
+    ``kernel_rows`` the path's kernel is first held against the plain
+    version at the admitted batch's prefill shape (``kernel`` phase),
+    and its rows join ``rows``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.estimator import XMemEstimator
@@ -390,22 +473,22 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "") -> None:
 
     base = get_config(arch)
     cfg = dataclasses.replace(
-        base, n_layers=N_LAYERS,
+        base, n_layers=n_layers or base.n_layers,
         attention=dataclasses.replace(base.attention, impl="flash"))
     capacity = srv.device_capacity()
     t0 = time.perf_counter()
-    batch, gate = srv.pick_batch(cfg, MAX_LEN, capacity,
-                                 candidates=(8, 4, 2, 1))
+    batch, gate = srv.pick_batch(cfg, max_len, capacity,
+                                 candidates=candidates)
     gate_s = time.perf_counter() - t0
     if batch is None:
         raise AssertionError(f"no batch fits: {gate['candidates']}")
     # the estimates at the shapes the run below uses (the gate traces
     # the prefill at a max_len prompt)
     est = XMemEstimator.for_torch_gpu()
-    cache_abs = M.init_cache(cfg, batch, MAX_LEN, device="meta")
+    cache_abs = M.init_cache(cfg, batch, max_len, device="meta")
     pre_est = est.estimate_serving(
         srv.make_prefill_fn(cfg), M.abstract_params(cfg), cache_abs,
-        srv.prompt_specs(cfg, batch, PROMPT_LEN))
+        srv.prompt_specs(cfg, batch, prompt_len))
     dec_est = gate["decode"]
     emit(f"{prefix}gate", config=cfg.name, n_layers=cfg.n_layers,
          capacity=capacity, seconds=gate_s, batch=batch,
@@ -415,11 +498,25 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "") -> None:
          decode_estimate=dec_est.peak_bytes,
          decode_tensor_estimate=dec_est.peak_tensor_bytes,
          persistent=pre_est.breakdown["persistent_by_kind"])
+    if kernel_rows:
+        gen = torch.Generator(device="cuda").manual_seed(1)
+
+        def rand(*shape, dtype):
+            return torch.randn(shape, generator=gen, device="cuda",
+                               dtype=torch.float32).to(dtype)
+        shape = (batch, cfg.n_heads, cfg.n_kv_heads, prompt_len, cfg.hd)
+        got, cases, lim = serving_shape_rows(
+            arch, shape, (fa.route(cfg.dtype, cfg.hd),), rand,
+            torch.nn.functional.scaled_dot_product_attention)
+        rows += got
+        emit(f"{prefix}kernel", cases=cases,
+             shape=shape_summary(shape, got, lim), rows=got,
+             memory=device_memory())
 
     params = M.init_params(cfg, 0, device="cuda")
     torch.cuda.synchronize()
     fa.reset_launches()
-    res = srv.serve(cfg, batch, MAX_LEN, PROMPT_LEN, DECODE_TOKENS, "cuda",
+    res = srv.serve(cfg, batch, max_len, prompt_len, DECODE_TOKENS, "cuda",
                     requests=REQUESTS, params=params)
     launches = fa.launches
     by_kernel = dict(fa.launches_by_kernel)
@@ -430,14 +527,16 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "") -> None:
     if launches != want or by_kernel["sm90"] != want:
         raise AssertionError(f"kernel launched {by_kernel}, expected "
                              f"{want} (n_layers per prefill), all sm90")
+    # audio: one logit row and one greedy code per codebook
+    per_step = (cfg.num_codebooks,) if cfg.num_codebooks else ()
     for lg in res.prefill_logits:
-        if tuple(lg.shape) != (batch, 1, cfg.padded_vocab):
+        if tuple(lg.shape) != (batch, 1, *per_step, cfg.padded_vocab):
             raise AssertionError(f"prefill logits shape {tuple(lg.shape)}")
         if not torch.isfinite(lg).all().item():
             raise AssertionError("non-finite prefill logits")
     toks = res.tokens
-    if toks.shape != (REQUESTS, batch, DECODE_TOKENS) or toks.min() < 0 \
-            or toks.max() >= cfg.padded_vocab:
+    if toks.shape != (REQUESTS, batch, DECODE_TOKENS, *per_step) \
+            or toks.min() < 0 or toks.max() >= cfg.padded_vocab:
         raise AssertionError(f"bad decoded tokens {toks.shape}")
 
     def mib(sizes):
@@ -467,7 +566,8 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "") -> None:
 
     phases = {"prefill": vs(res.peaks["prefill"], pre_est),
               "decode": vs(res.peaks["decode"], dec_est)}
-    emit(f"{prefix}main", batch=batch, prompt_len=PROMPT_LEN,
+    emit(f"{prefix}main", batch=batch, n_layers=cfg.n_layers,
+         prompt_len=prompt_len, max_len=max_len,
          tokens=DECODE_TOKENS, requests=REQUESTS, kernel_launches=launches,
          launches_by_kernel=by_kernel,
          prefill_ms=[s * 1e3 for s in res.prefill_s],
@@ -483,28 +583,37 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "") -> None:
                SERVING_ALLOCATED_TOL)
     del res
     torch.cuda.empty_cache()
-    phase_requests(cfg, params, batch, prefix)
-    phase_profile(cfg, params, batch, prefix)
+    phase_requests(cfg, params, batch, prefix, max_len, prompt_len)
+    phase_profile(cfg, params, batch, prefix, prompt_len)
     if cfg.moe is not None:
         phase_experts(cfg, params, batch, prefix)
 
     # the kernel path against the dense path at batch 1, same weights
+    # (the same argmax per codebook for audio)
     dense = dataclasses.replace(
         cfg, attention=dataclasses.replace(cfg.attention, impl="dense"))
-    prompt = torch.from_numpy(
-        srv.make_prompts(cfg, 1, PROMPT_LEN, seed=100)).cuda()
-    lf = make_prefill_step(cfg)(params, {"tokens": prompt}).float()
-    ld = make_prefill_step(dense)(params, {"tokens": prompt}).float()
+    prompt = srv.device_prompts(cfg, 1, prompt_len, seed=100)
+    lf = make_prefill_step(cfg)(params, prompt).float()
+    ld = make_prefill_step(dense)(params, prompt).float()
     rel = ((lf - ld).abs().max() / ld.abs().max()).item()
-    same = bool((lf.argmax(-1) == ld.argmax(-1)).all().item())
+    top_f, top_d = lf.argmax(-1, keepdim=True), ld.argmax(-1, keepdim=True)
+    same = bool((top_f == top_d).all().item())
+    # where the argmax differs: the dense path's lead of its own top
+    # token over the flash path's (a flip needs a lead within twice the
+    # largest logit difference)
+    flips = (ld.gather(-1, top_d) - ld.gather(-1, top_f))[top_f != top_d]
     emit(f"{prefix}parity", flash_vs_dense_rel=rel, tol=LOGITS_REL_TOL,
-         same_argmax=same, finite=bool(torch.isfinite(lf).all().item()),
+         same_argmax=same, max_abs_diff=(lf - ld).abs().max().item(),
+         flip_leads=flips.tolist(),
+         finite=bool(torch.isfinite(lf).all().item()),
          memory=device_memory())
     if not rel < LOGITS_REL_TOL:
         raise AssertionError(f"flash vs dense logits: rel {rel}")
 
 
-def phase_requests(cfg, params, batch: int, prefix: str = "") -> None:
+def phase_requests(cfg, params, batch: int, prefix: str = "",
+                   max_len: int = MAX_LEN,
+                   prompt_len: int = PROMPT_LEN) -> None:
     """The card's allocator requests during one prefill against the
     trace's, aligned by size: what the CPU trace misses or adds."""
     import torch
@@ -518,17 +627,15 @@ def phase_requests(cfg, params, batch: int, prefix: str = "") -> None:
     entry = XMemEstimator.for_torch_gpu()._trace_phase(
         srv.make_prefill_fn(cfg),
         [(M.abstract_params(cfg), BlockKind.PARAM, "params"),
-         (M.init_cache(cfg, batch, MAX_LEN, device="meta"), BlockKind.CACHE,
+         (M.init_cache(cfg, batch, max_len, device="meta"), BlockKind.CACHE,
           "cache"),
-         (srv.prompt_specs(cfg, batch, PROMPT_LEN), BlockKind.INPUT,
+         (srv.prompt_specs(cfg, batch, prompt_len), BlockKind.INPUT,
           "batch")], Phase.DECODE)
     traced = [(b.size, b.op)   # requested bytes, as the card reports
               for b in sorted(entry.lifecycles, key=lambda b: b.alloc_t)
               if b.op != "input"]
-    prompt = torch.from_numpy(
-        srv.make_prompts(cfg, batch, PROMPT_LEN, seed=300)).cuda()
-    got = measured_peak(make_prefill_step(cfg), params, {"tokens": prompt},
-                        history=True)
+    prompt = srv.device_prompts(cfg, batch, prompt_len, seed=300)
+    got = measured_peak(make_prefill_step(cfg), params, prompt, history=True)
     card_only, trace_only = align_requests(traced, got.allocs)
     emit(f"{prefix}requests", card=len(got.allocs), trace=len(traced),
          card_only=len(card_only), trace_only=len(trace_only),
@@ -570,11 +677,10 @@ def phase_experts(cfg, params, batch: int, prefix: str) -> None:
         out = dispatch(xg, topi, topv, n_experts, capacity)
         taken.append((out[1] < xg.shape[0]).sum(dim=1))
         return out
-    prompt = torch.from_numpy(
-        srv.make_prompts(cfg, batch, PROMPT_LEN, seed=0)).cuda()
+    prompt = srv.device_prompts(cfg, batch, PROMPT_LEN, seed=0)
     moe._dispatch_one_group = counting
     try:
-        make_prefill_step(cfg)(params, {"tokens": prompt})
+        make_prefill_step(cfg)(params, prompt)
     finally:
         moe._dispatch_one_group = dispatch
     per_layer = torch.stack(taken).cpu().tolist()
@@ -657,7 +763,42 @@ def phase_moe_layer() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_profile(cfg, params, batch: int, prefix: str = "") -> None:
+def phase_attention_layer() -> None:
+    """The chunked attention's training forward and backward at a
+    training sequence (``TRAIN_SEQ``; one sequence of 4 heads, head dim
+    64): the card's allocator requests, with the ATen function that made
+    each, against the trace's. The trace runs the step under a Python
+    dispatch mode, and with one active the autograd engine sums
+    gradients out of place where it would sum them in place."""
+    import torch
+    from repro_torch.core.baselines.directprobe import measured_peak
+    from repro_torch.core.tracer import trace_fn
+    from repro_torch.models.layers import chunked_attention
+
+    def step(q, k, v):
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        o = chunked_attention(q, k, v)
+        return torch.autograd.grad(o.float().square().mean(), [q, k, v])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((1, TRAIN_SEQ, 4, 64), generator=gen,
+                           device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    _, tr, _ = trace_fn(step, q, k, v, grad=True)
+    traced = [(b.size, b.op) for b in sorted(tr.blocks.values(),
+                                             key=lambda b: b.alloc_t)
+              if b.op != "input"]
+    got = measured_peak(step, q, k, v, history=True, stacks="all")
+    card_only, trace_only = align_requests(traced, got.allocs)
+    emit("attn_layer", seq_len=TRAIN_SEQ, heads=4, head_dim=64,
+         card=len(got.allocs), trace=len(traced),
+         trace_only_by_op=collections.Counter(op for _, op in trace_only),
+         trace_only_bytes=sum(size for size, _ in trace_only),
+         card_only=card_only, trace_only_first=trace_only[:12],
+         memory=device_memory())
+
+
+def phase_profile(cfg, params, batch: int, prefix: str = "",
+                  prompt_len: int = PROMPT_LEN) -> None:
     """Device time of one warm prefill at the admitted batch, by kernel,
     from ``torch.profiler``; busy share = kernel time / wall time."""
     import torch
@@ -665,15 +806,14 @@ def phase_profile(cfg, params, batch: int, prefix: str = "") -> None:
     from repro_torch.launch import serve as srv
     from repro_torch.train.train_step import make_prefill_step
 
-    prompt = torch.from_numpy(
-        srv.make_prompts(cfg, batch, PROMPT_LEN, seed=200)).cuda()
+    prompt = srv.device_prompts(cfg, batch, prompt_len, seed=200)
     step = make_prefill_step(cfg)
-    step(params, {"tokens": prompt})           # warm the allocator
+    step(params, prompt)                       # warm the allocator
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(params, {"tokens": prompt})
+        step(params, prompt)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
@@ -703,32 +843,49 @@ def phase_profile(cfg, params, batch: int, prefix: str = "") -> None:
 
 def phase_train(job: str) -> None:
     """The training path of ``TRAIN_JOBS[job]``, in a process of its own
-    as a training job is: gate on the CPU, then steps on the card. Its
-    phases' names start with ``moe_`` for the MoE job."""
+    as a training job is: the gate's first ``TRACED_AHEAD`` candidates
+    traced on the CPU before any CUDA call, then, once a line on stdin
+    says it is this job's turn on the card, the gate at the card's
+    capacity (the traces from the cache) and the steps on the card. Its
+    phases' names start with ``<job>_`` except for the dense job."""
     import math
 
     import torch
     from torch.utils import _pytree as pytree
     from repro_torch.configs import get_config
     from repro_torch.configs.base import smoke_shape
+    from repro_torch.configs.registry import input_specs
+    from repro_torch.core.estimator import XMemEstimator
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve as srv
     from repro_torch.launch import train as trn
     from repro_torch.models import model as M
-    from repro_torch.train import TrainPolicy
+    from repro_torch.train import TrainPolicy, make_estimator_hooks
 
     prefix = "" if job == "dense" else f"{job}_"
-    arch, n_layers = TRAIN_JOBS[job]
+    arch, n_layers, candidates = TRAIN_JOBS[job]
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
-    memory = device_memory()
     policy = TrainPolicy()          # AdamW, clip_norm 1.0, 1 microbatch
+    est = XMemEstimator.for_torch_gpu()
+    trace_s = []
+    for b in candidates[:TRACED_AHEAD]:
+        t0 = time.perf_counter()
+        fwd_bwd, update, opt_init = make_estimator_hooks(cfg, policy)
+        est.trace_phases(fwd_bwd, M.abstract_params(cfg),
+                         input_specs(cfg, smoke_shape(TRAIN_SEQ, b)),
+                         update, opt_init)
+        trace_s.append(time.perf_counter() - t0)
+    if sys.stdin.readline().strip() != "go":
+        raise AssertionError(f"training job {job}: no turn on the card")
+    memory = device_memory()
     capacity = srv.device_capacity()
     batch, gate = trn.pick_train_batch(cfg, policy, TRAIN_SEQ, capacity,
-                                       TRAIN_CANDIDATES)
+                                       candidates, est=est)
     emit(f"{prefix}train_gate", config=cfg.name, n_layers=cfg.n_layers,
          seq_len=TRAIN_SEQ, optimizer=policy.optimizer,
          clip_norm=policy.clip_norm, microbatches=policy.microbatches,
          capacity=capacity, seconds=gate["seconds"],
+         trace_seconds={str(b): x for b, x in zip(candidates, trace_s)},
          trace_cache=gate["trace_cache"], candidates=gate["candidates"],
          batch=batch, memory=memory)
     if batch is None:
@@ -775,6 +932,58 @@ def phase_train(job: str) -> None:
     emit_train_requests(got.allocs, traced, prefix)
     within(f"{cfg.name} training reserved", rel_reserved, RESERVED_TOL)
     within(f"{cfg.name} training allocated", rel_allocated, ALLOCATED_TOL)
+    if job == CKPT_JOB:
+        phase_checkpoint({"params": params, "opt_state": run.opt_state},
+                         run.step, prefix)
+
+
+def phase_checkpoint(state: dict, step: int, prefix: str) -> None:
+    """``state`` through the port's ``CheckpointManager``: saved to a
+    temporary directory (after a check that its disk has room), restored
+    into fresh card tensors and held to ``state`` byte for byte; the
+    directory is deleted."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.train import CheckpointManager
+    from repro_torch.train.checkpoint import _flatten
+
+    leaves = dict(_flatten(state))
+    nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        need = nbytes + (64 << 20)          # the npz's headers and manifest
+        if free < need:
+            raise AssertionError(f"checkpoint needs {need} bytes of disk in "
+                                 f"{root}, {free} free")
+        mgr = CheckpointManager(root)
+        t0 = time.perf_counter()
+        mgr.save(step, state)
+        save_s = time.perf_counter() - t0
+        file_bytes = sum(f.stat().st_size for f in Path(root).iterdir())
+        t0 = time.perf_counter()
+        got_step, restored = mgr.restore_latest(state, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        back = dict(_flatten(restored))
+        same = got_step == step and back.keys() == leaves.keys() and all(
+            back[p].dtype == t.dtype and back[p].shape == t.shape
+            and back[p].data_ptr() != t.data_ptr()
+            and torch.equal(back[p].reshape(-1).view(torch.uint8),
+                            t.reshape(-1).view(torch.uint8))
+            for p, t in leaves.items())
+        del restored, back
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(f"{prefix}ckpt", step=step, leaves=len(leaves), tensor_bytes=nbytes,
+         file_bytes=file_bytes, disk_free=free, save_s=save_s,
+         restore_s=restore_s, byte_equal=same, memory=device_memory())
+    if not same:
+        raise AssertionError("the restored checkpoint differs from the "
+                             "trained state")
 
 
 def replay_card_stream(events, resident, capacity: int) -> dict:
@@ -832,19 +1041,52 @@ def main() -> int:
     if sys.argv[1:2] == ["--train"] and len(sys.argv) == 3:
         phase_train(sys.argv[2])
         return 0
-    info = phase_device()
-    phase_build()
-    rows = phase_kernels()
-    phase_serving(rows, "qwen3-32b")
-    phase_moe_layer()
-    phase_serving(rows, MOE_ARCH, "moe_")
     # each training job gets a process of its own, as it would: a fresh
-    # allocator whose first iteration makes cuBLAS's workspaces; this
-    # process keeps only its context and workspace on the card
-    torch.cuda.empty_cache()
+    # allocator whose first iteration makes cuBLAS's workspaces. They
+    # start now and trace their gates on the CPU while this process
+    # serves; each takes the card in turn at the end. The jobs get half
+    # the cores and this process the other half, so that the serving
+    # paths' host-side numbers are not taken under the tracing's load
+    cores = sorted(os.sched_getaffinity(0))
+    mine, theirs = cores[:len(cores) // 2], cores[len(cores) // 2:]
+    jobs = {}
     for job in TRAIN_JOBS:
-        subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--train", job], check=True, timeout=450)
+        jobs[job] = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--train", job],
+            stdin=subprocess.PIPE, text=True)
+        if mine:
+            os.sched_setaffinity(jobs[job].pid, theirs)
+    if mine:
+        for tid in os.listdir("/proc/self/task"):
+            os.sched_setaffinity(int(tid), mine)
+        torch.set_num_threads(len(mine))
+    emit("cpus", serving=mine, training_jobs=theirs)
+    try:
+        info = phase_device()
+        phase_build()
+        rows = phase_kernels()
+        phase_serving(rows, "qwen3-32b")
+        phase_moe_layer()
+        phase_attention_layer()
+        phase_serving(rows, MOE_ARCH, "moe_")
+        for arch, (prefix, max_len, prompt_len) in FULL_DEPTH_SERVING.items():
+            phase_serving(rows, arch, prefix, n_layers=None, max_len=max_len,
+                          prompt_len=prompt_len, candidates=WIDE_CANDIDATES,
+                          kernel_rows=True)
+        # this process keeps only its context and workspace on the card
+        torch.cuda.empty_cache()
+        for job, child in jobs.items():
+            if child.poll() is None:        # still waiting for its turn
+                child.stdin.write("go\n")
+                child.stdin.close()
+            if child.wait(timeout=600) != 0:
+                raise AssertionError(f"training job {job} failed: exit "
+                                     f"{child.returncode}")
+    finally:
+        for child in jobs.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
     print(json.dumps({"kernels": rows}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -79,7 +79,8 @@ def measured_peak(step: Callable, *args, device=None,
 def measured_training(fwd_bwd: Callable, update_fn: Callable,
                       opt_init_fn: Callable, params, batch_fn: Callable,
                       steps: int = 3, device=None,
-                      history: bool = False) -> MeasuredPeak:
+                      history: bool = False, run=None,
+                      on_step: Callable | None = None) -> MeasuredPeak:
     """Run ``steps`` training steps on the card and return their peaks.
 
     The window starts from the resident ``params`` alone (cached blocks
@@ -87,10 +88,11 @@ def measured_training(fwd_bwd: Callable, update_fn: Callable,
     card, runs ``fwd_bwd`` and the in-place ``update_fn``; the
     optimizer state is made by ``opt_init_fn`` after the first
     backward, inside the window. ``out`` is ``train_step.TrainRun``
-    (losses, synchronized step seconds)."""
+    (losses, synchronized step seconds); ``run`` and ``on_step`` are
+    ``train_step.run_steps``'s (a resumed run brings its state)."""
     from ...train.train_step import run_steps
     return _measure(lambda: run_steps(fwd_bwd, update_fn, opt_init_fn,
-                                      params, batch_fn, steps),
+                                      params, batch_fn, steps, run, on_step),
                     device, history)
 
 

@@ -13,7 +13,10 @@ gives its design and its bound):
   TF32, too coarse for f32's tolerance) and for bf16 at d 16 and 32.
 
 :func:`route` picks one from the dtype and the head dim alone. It is not
-a fallback: a kernel that fails to build or launch raises.
+a fallback: a kernel that fails to build or launch raises. A head dim
+no kernel takes (kimi-k2's 112) reaches one zero-padded to
+:func:`padded_head_dim` by the model-layout wrapper (``ops.py``), with
+the scale of the true head dim passed as ``scale``.
 
 The operator is registered as ``repro_torch::flash_attention``:
 
@@ -74,6 +77,18 @@ def route(dtype: torch.dtype, d: int) -> str:
                      f"f32: {SIMT_HEAD_DIMS})")
 
 
+def padded_head_dim(dtype: torch.dtype, d: int) -> int:
+    """The least head dim ``>= d`` that :func:`route` takes for
+    ``dtype``: ``d`` itself when a kernel takes it. Raises
+    ``ValueError`` when even the largest is too small."""
+    dims = SM90_HEAD_DIMS + SIMT_HEAD_DIMS[:2] if dtype == torch.bfloat16 \
+        else SIMT_HEAD_DIMS if dtype in _DTYPE_CODE else ()
+    for dp in sorted(dims):
+        if dp >= d:
+            return dp
+    return route(dtype, d)       # raises, naming what the kernels take
+
+
 def _entry(kernel: str):
     fn = _fns.get(kernel)
     if fn is None:
@@ -130,11 +145,13 @@ def _empty_out(q):
 
 
 def launch(kernel: str, q, k, v, *, causal: bool = True,
-           window: int | None = None) -> torch.Tensor:
+           window: int | None = None,
+           scale: float | None = None) -> torch.Tensor:
     """Launch ``kernel`` ("sm90" or "simt") on CUDA tensors q [B, H, Sq,
-    d], k/v [B, Hkv, Sk, d] and count the launch. The operator calls it
-    with :func:`route`'s choice; a caller that holds one kernel against
-    the plain version may name it. Raises on what the kernel does not
+    d], k/v [B, Hkv, Sk, d] and count the launch; the scores are scaled
+    by ``scale`` (default ``1/sqrt(d)``). The operator calls it with
+    :func:`route`'s choice; a caller that holds one kernel against the
+    plain version may name it. Raises on what the kernel does not
     take."""
     global launches
     _check(q, k, v, window)
@@ -172,7 +189,7 @@ def launch(kernel: str, q, k, v, *, causal: bool = True,
             v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1), out.stride(2),
             int(causal), 0 if window is None else int(window),
-            1.0 / math.sqrt(d), stream)
+            1.0 / math.sqrt(d) if scale is None else float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention {kernel} kernel launch failed: "
                            f"error {err} (a cudaError_t; 1000 + n: tensor "
@@ -185,29 +202,33 @@ def launch(kernel: str, q, k, v, *, causal: bool = True,
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
                          device_types="cuda")
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       causal: bool, window: Optional[int]) -> torch.Tensor:
+                       causal: bool, window: Optional[int],
+                       scale: Optional[float] = None) -> torch.Tensor:
     _check(q, k, v, window)
     return launch(route(q.dtype, q.shape[3]), q, k, v, causal=causal,
-                  window=window)
+                  window=window, scale=scale)
 
 
 @flash_attention_op.register_kernel("cpu")
-def _flash_attention_cpu(q, k, v, causal, window):
+def _flash_attention_cpu(q, k, v, causal, window, scale=None):
     _check(q, k, v, window)
     out = _empty_out(q)
-    out.copy_(attention_ref(q, k, v, causal=causal, window=window))
+    out.copy_(attention_ref(q, k, v, causal=causal, window=window,
+                            scale=scale))
     return out
 
 
 @flash_attention_op.register_fake
-def _flash_attention_fake(q, k, v, causal, window):
+def _flash_attention_fake(q, k, v, causal, window, scale=None):
     _check(q, k, v, window)
     return _empty_out(q)
 
 
 def flash_attention_bhsd(q, k, v, *, causal: bool = True,
-                         window: int | None = None):
-    """q: [B, H, Sq, d]; k/v: [B, Hkv, Sk, d] -> [B, H, Sq, d].
+                         window: int | None = None,
+                         scale: float | None = None):
+    """q: [B, H, Sq, d]; k/v: [B, Hkv, Sk, d] -> [B, H, Sq, d]; scores
+    scaled by ``scale`` (default ``1/sqrt(d)``).
 
     Any strides with a unit stride on d; no padding is needed."""
-    return flash_attention_op(q, k, v, causal, window)
+    return flash_attention_op(q, k, v, causal, window, scale)

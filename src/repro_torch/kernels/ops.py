@@ -3,17 +3,31 @@
 ``[B, S, H, hd]`` <-> ``[B, H, S, hd]`` are transposed views, not
 copies: the kernel reads and writes through strides and masks the
 ragged sequence edge itself, so unlike the JAX package's wrapper this
-one neither pads nor un-pads.
+one does not pad the sequence. A head dim that no kernel takes (kimi-k2's
+112) is zero-padded to the next one that a kernel does
+(``padded_head_dim``): zero columns add nothing to q . k, the scale
+stays ``1/sqrt(hd)``, and the padded output columns are sliced off. The
+padding happens here, outside the operator, so the memory tracer sees
+the padded copies as ordinary op outputs.
 """
 from __future__ import annotations
 
-from .flash_attention import flash_attention_bhsd
+import math
+
+import torch.nn.functional as F
+
+from .flash_attention import flash_attention_bhsd, padded_head_dim
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None):
     """Model-layout entry point: q [B, S, H, hd], k/v [B, S, Hkv, hd]."""
+    d = q.shape[-1]
+    dp = padded_head_dim(q.dtype, d)
+    if dp != d:
+        q, k, v = (F.pad(t, (0, dp - d)) for t in (q, k, v))
     out = flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=causal,
-                               window=window)
-    return out.transpose(1, 2)
+                               window=window, scale=1.0 / math.sqrt(d))
+    out = out.transpose(1, 2)
+    return out if dp == d else out[..., :d]

@@ -8,8 +8,9 @@ import torch
 
 
 def attention_ref(q, k, v, *, causal: bool = True,
-                  window: int | None = None):
-    """q: [B, H, Sq, d]; k/v: [B, Hkv, Sk, d] — dense softmax oracle.
+                  window: int | None = None, scale: float | None = None):
+    """q: [B, H, Sq, d]; k/v: [B, Hkv, Sk, d] — dense softmax oracle,
+    scores scaled by ``scale`` (default ``1/sqrt(d)``).
 
     Query and key positions both start at 0. Rows with no attendable key
     come out as 0, like the kernel's ``acc / max(l, 1e-30)``. Nothing is
@@ -17,7 +18,8 @@ def attention_ref(q, k, v, *, causal: bool = True,
     B, H, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = H // Hkv
-    scale = 1.0 / math.sqrt(d)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     qg = q.reshape(B, Hkv, G, Sq, d).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
     q_pos = torch.arange(Sq, device=q.device)[:, None]

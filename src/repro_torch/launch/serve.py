@@ -12,6 +12,11 @@ estimate.
       --n-layers 8 --max-len 2064 --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b \
+      --max-len 2320 --tokens 16
+
+``--max-len`` counts every position of the cache: a VLM's patches, the
+prompt and the decoded tokens.
 
 As in the JAX package, prefill returns the last position's logits and
 does not fill the KV cache; decoding starts at cache position 0.
@@ -27,28 +32,59 @@ import numpy as np
 import torch
 
 from ..configs import get_config, get_smoke
+from ..configs.base import smoke_shape
+from ..configs.registry import decode_input_specs, input_specs
 from ..core.baselines.directprobe import measured_peak
 from ..core.estimator import XMemEstimator
 from ..models import model as M
+from ..train.data import to_device
 from ..train.train_step import make_prefill_step, make_serve_step
 
 
 def decode_input(cfg, b: int) -> dict:
-    """One-token decode batch for ``M.decode_step`` (meta tensors)."""
-    return {"tokens": torch.empty((b, 1), dtype=torch.int32,
-                                  device="meta")}
+    """One-token decode batch for ``M.decode_step`` (meta tensors):
+    codes ``[b, 1, K]`` for audio, else a token ``[b, 1]``."""
+    return decode_input_specs(cfg, smoke_shape(1, b))
 
 
 def prompt_specs(cfg, b: int, seq: int) -> dict:
-    """Full-prompt prefill batch (no labels — serving, not training)."""
-    return {"tokens": torch.empty((b, seq), dtype=torch.int32,
-                                  device="meta")}
+    """Full-prompt prefill batch of ``seq`` positions as meta tensors:
+    the training batch's inputs without its labels (a VLM's patch
+    embeddings and then its tokens, audio codes ``[b, seq, K]``, else
+    tokens ``[b, seq]``)."""
+    specs = input_specs(cfg, smoke_shape(seq, b))
+    del specs["labels"]
+    return specs
 
 
-def make_prompts(cfg, b: int, seq: int, seed: int = 0) -> np.ndarray:
-    """Random prompt tokens ``[b, seq]`` int32 from a numpy seed."""
+def make_prompts(cfg, b: int, seq: int, seed: int = 0) -> dict:
+    """A random prompt batch with :func:`prompt_specs`' keys and shapes,
+    as numpy arrays from a numpy seed: int32 tokens or codes below the
+    vocabulary, f32 patch embeddings drawn N(0, 0.02^2) as the data
+    pipeline draws them."""
     rng = np.random.default_rng(seed)
-    return rng.integers(0, cfg.vocab, size=(b, seq), dtype=np.int32)
+    out = {}
+    for name, spec in prompt_specs(cfg, b, seq).items():
+        if spec.dtype.is_floating_point:
+            out[name] = rng.standard_normal(
+                tuple(spec.shape)).astype(np.float32) * 0.02
+        else:
+            out[name] = rng.integers(0, cfg.vocab, size=tuple(spec.shape),
+                                     dtype=np.int32)
+    return out
+
+
+def device_prompts(cfg, b: int, seq: int, seed: int = 0,
+                   device="cuda") -> dict:
+    """:func:`make_prompts` as tensors on ``device``; floats take
+    ``cfg.dtype``."""
+    return to_device(cfg, make_prompts(cfg, b, seq, seed), device)
+
+
+def decode_batch(cfg, tok) -> dict:
+    """The decode step's batch for the last tokens ``tok`` (``[B, 1]``,
+    or ``[B, 1, K]`` codes for audio)."""
+    return {"codes": tok} if cfg.family == "audio" else {"tokens": tok}
 
 
 def make_decode_fn(cfg):
@@ -116,13 +152,15 @@ def pick_batch(cfg, max_len: int, capacity: int | None = None,
 
 @dataclasses.dataclass
 class ServeResult:
-    tokens: np.ndarray            # [requests, batch, n_tokens] greedy ids
-    prefill_logits: list          # per request, [batch, 1, vocab], host
+    tokens: np.ndarray            # [requests, batch, n_tokens(, K)] greedy
+    prefill_logits: list          # per request, [batch, 1(, K), vocab], host
     prefill_s: list[float]        # per request, synchronized wall time
     decode_s: list[float]         # per request, all decode steps
     peaks: dict | None            # {"prefill"/"decode": MeasuredPeak}
 
     def decode_tok_per_s(self, r: int = -1) -> float:
+        """Decode steps of all sequences per second (an audio step
+        emits one code per codebook)."""
         n = self.tokens.shape[1] * self.tokens.shape[2]
         return n / self.decode_s[r]
 
@@ -131,13 +169,15 @@ def serve(cfg, batch: int, max_len: int, prompt_len: int, tokens: int,
           device="cuda", *, seed: int = 0, requests: int = 1,
           params=None) -> ServeResult:
     """Serve ``requests`` prompt batches one after another: prefill a
-    random ``[batch, prompt_len]`` prompt, take its last-position argmax
-    as the first token, then decode ``tokens`` tokens greedily.
+    random prompt of ``prompt_len`` positions (``make_prompts``; a VLM's
+    patches count), take its last-position argmax (per codebook for
+    audio) as the first token, then decode ``tokens`` tokens greedily.
 
     On a CUDA device every prefill and every decode loop runs through
-    ``measured_peak``; ``peaks`` holds each phase's largest reading.
-    Prefill logits go to the host before decoding: a device tensor kept
-    across phases would pin its allocator segment under the next step."""
+    ``measured_peak``; ``peaks`` holds each phase's largest reading,
+    without the step's output. Prefill logits go to the host before
+    decoding: a device tensor kept across phases would pin its allocator
+    segment under the next step."""
     if prompt_len > max_len:
         raise ValueError(f"prompt_len {prompt_len} > max_len {max_len}")
     on_card = torch.device(device).type == "cuda"
@@ -154,15 +194,17 @@ def serve(cfg, batch: int, max_len: int, prompt_len: int, tokens: int,
             t0 = time.perf_counter()
             return fn(*args), time.perf_counter() - t0
         got = measured_peak(fn, *args, device=device)
+        out, got.out = got.out, None    # a kept reading pins no output
         if phase not in peaks or got.reserved > peaks[phase].reserved:
             peaks[phase] = got
-        return got.out, got.seconds
+        return out, got.seconds
 
     @torch.no_grad()
     def decode_loop(tok):
         out = []
         for i in range(tokens):
-            logits, _ = M.decode_step(params, cache, {"tokens": tok}, i, cfg)
+            logits, _ = M.decode_step(params, cache, decode_batch(cfg, tok),
+                                      i, cfg)
             tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
             del logits
             out.append(tok)
@@ -170,11 +212,10 @@ def serve(cfg, batch: int, max_len: int, prompt_len: int, tokens: int,
 
     all_tokens, all_logits, pre_s, dec_s = [], [], [], []
     for r in range(requests):
-        prompt = torch.from_numpy(
-            make_prompts(cfg, batch, prompt_len, seed + r)).to(device)
+        prompt = device_prompts(cfg, batch, prompt_len, seed + r, device)
         cache["k"].zero_()
         cache["v"].zero_()
-        logits, seconds = run("prefill", prefill, params, {"tokens": prompt})
+        logits, seconds = run("prefill", prefill, params, prompt)
         pre_s.append(seconds)
         tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
         all_logits.append(logits.cpu())

@@ -12,10 +12,15 @@ the estimate.
       --n-layers 4 --seq 4096 --batch 8 --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-32b \\
       --smoke --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-1b \\
+      --smoke --device cpu --steps 6 --ckpt-dir ckpt --ckpt-every 2
 
 Capacity comes from the card (``serve.device_capacity``: the free
 memory plus what the caching allocator holds); a CPU run budgets
-nothing. No checkpoints yet (ROADMAP Queue 1).
+nothing. With ``--ckpt-dir`` the loop resumes from the newest valid
+checkpoint there, saves every ``--ckpt-every`` steps and at the end,
+and saves an emergency checkpoint when a step raises (the JAX package's
+``train_loop`` flow, in its checkpoint format).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import sys
 import time
 
 import torch
+from torch.utils import _pytree as pytree
 
 from ..configs import get_config, get_smoke
 from ..configs.base import ShapeSpec, smoke_shape
@@ -33,8 +39,10 @@ from ..configs.registry import input_specs
 from ..core.baselines.directprobe import measured_training
 from ..core.estimator import EstimateReport, XMemEstimator
 from ..models import model as M
-from ..train import (SyntheticDataset, TrainPolicy, make_estimator_hooks,
-                     run_steps)
+from ..train import (SyntheticDataset, TrainPolicy, TrainRun,
+                     make_estimator_hooks, run_steps)
+from ..train.checkpoint import CheckpointManager
+from ..train.elastic import StragglerMonitor
 from .serve import device_capacity
 
 
@@ -54,18 +62,21 @@ def admission_check(cfg, policy: TrainPolicy, shape: ShapeSpec,
 
 def pick_train_batch(cfg, policy: TrainPolicy, seq_len: int,
                      capacity: int | None = None,
-                     candidates=(8, 4, 2, 1)):
+                     candidates=(8, 4, 2, 1),
+                     est: XMemEstimator | None = None):
     """Largest global batch of ``candidates`` whose training estimate,
     replayed at ``capacity`` (default: ``device_capacity()``), fits.
 
-    One estimator serves every candidate, so its trace cache gives the
-    batch-independent optimizer phases to all but the first. Returns
-    ``(batch, gate)``; ``gate`` holds every candidate tried, the
-    admitting report, the CPU seconds and the trace-cache counts, or
-    ``(None, gate)`` when no candidate fits."""
+    One estimator (``est``, default a fresh ``for_torch_gpu()`` one)
+    serves every candidate, so its trace cache gives the
+    batch-independent optimizer phases to all but the first, and every
+    phase it traced before (``est.trace_phases`` ahead of the capacity)
+    to all. Returns ``(batch, gate)``; ``gate`` holds every candidate
+    tried, the admitting report, the CPU seconds and the trace-cache
+    counts, or ``(None, gate)`` when no candidate fits."""
     if capacity is None:
         capacity = device_capacity()
-    est = XMemEstimator.for_torch_gpu()
+    est = est or XMemEstimator.for_torch_gpu()
     gate: dict = {"capacity": capacity, "candidates": []}
     t0 = time.perf_counter()
     batch = None
@@ -89,24 +100,78 @@ def pick_train_batch(cfg, policy: TrainPolicy, seq_len: int,
 
 def train_loop(cfg, shape: ShapeSpec, policy: TrainPolicy, *, steps: int,
                device="cuda", seed: int = 0, params=None,
-               history: bool = False):
-    """Train ``steps`` steps of ``shape``'s batch from random weights
-    (``seed``) on synthetic data. On a CUDA device the steps run inside
-    ``measured_training`` (``history``: with the allocator's request
-    history) and the result is its ``MeasuredPeak`` (the ``TrainRun`` in
-    ``out``); on the CPU the result is the ``TrainRun``."""
+               history: bool = False, ckpt_dir: str | None = None,
+               ckpt_every: int = 20):
+    """Train up to step ``steps`` of ``shape``'s batch from random
+    weights (``seed``) on synthetic data. On a CUDA device the steps run
+    inside ``measured_training`` (``history``: with the allocator's
+    request history) and the result is its ``MeasuredPeak`` (the
+    ``TrainRun`` in ``out``); on the CPU the result is the ``TrainRun``.
+    Each step's time goes to a one-worker ``StragglerMonitor`` as
+    worker 0's.
+
+    With ``ckpt_dir``: first restore the newest valid checkpoint there
+    into ``params`` and the optimizer state (and go on from its step);
+    save every ``ckpt_every`` steps and after the last; when a step
+    raises, save an emergency checkpoint at that step and re-raise. An
+    exception that cuts the in-place update short leaves parameters and
+    state partly updated, and then nothing is saved. The restore and
+    the final save lie outside the measured window; a save between
+    steps copies the tensors to the host and allocates nothing on the
+    card. ``ckpt_dir=None`` writes nothing."""
     fwd_bwd, update, opt_init = make_estimator_hooks(cfg, policy)
     if params is None:
         params = M.init_params(cfg, seed, device=device)
+    monitor = StragglerMonitor(n_workers=1)
     ds = SyntheticDataset(cfg, shape)
+    run = TrainRun([], [])
+    ckpt = None
+    if ckpt_dir is not None:
+        ckpt = CheckpointManager(ckpt_dir)
+        meta = M.abstract_params(cfg)
+        restored = ckpt.restore_latest(
+            {"params": meta, "opt_state": opt_init(meta)}, device="cpu")
+        if restored is not None:
+            run.step, state = restored
+            with torch.no_grad():
+                for p, r in zip(pytree.tree_leaves(params),
+                                pytree.tree_leaves(state["params"])):
+                    p.copy_(r)
+            run.opt_state = pytree.tree_map(lambda t: t.to(device),
+                                            state["opt_state"])
+            print(f"[ckpt] resumed from step {run.step}")
+
+    def state():
+        opt_state = run.opt_state
+        if opt_state is None:     # no update yet: the state it would make
+            opt_state = opt_init(pytree.tree_map(
+                lambda p: torch.empty(p.shape, dtype=p.dtype), params))
+        return {"params": params, "opt_state": opt_state}
+
+    def on_step(run):
+        monitor.record(0, run.step_s[-1])
+        if ckpt is not None and run.step % ckpt_every == 0:
+            ckpt.save(run.step, state())
 
     def batch_fn(step):
         return ds.device_batch(step, device)
 
-    if torch.device(device).type == "cuda":
-        return measured_training(fwd_bwd, update, opt_init, params,
-                                 batch_fn, steps, device, history)
-    return run_steps(fwd_bwd, update, opt_init, params, batch_fn, steps)
+    try:
+        if torch.device(device).type == "cuda":
+            got = measured_training(fwd_bwd, update, opt_init, params,
+                                    batch_fn, steps, device, history, run,
+                                    on_step)
+        else:
+            got = run_steps(fwd_bwd, update, opt_init, params, batch_fn,
+                            steps, run, on_step)
+    except BaseException:
+        if ckpt is not None and not run.torn:
+            ckpt.emergency(run.step, state())
+            print(f"[ckpt] emergency checkpoint at step {run.step}")
+        raise
+    if ckpt is not None:
+        ckpt.save(steps, state())
+    return got
 
 
 def main(argv=None) -> int:
@@ -128,6 +193,9 @@ def main(argv=None) -> int:
                     help="default: what the card's allocator can hold")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="resume from and save checkpoints here")
+    ap.add_argument("--ckpt-every", type=int, default=20)
     args = ap.parse_args(argv)
 
     on_card = torch.device(args.device).type == "cuda"
@@ -166,9 +234,11 @@ def main(argv=None) -> int:
         return 0
     shape = smoke_shape(args.seq, batch)
     got = train_loop(cfg, shape, policy, steps=args.steps,
-                     device=args.device, seed=args.seed)
+                     device=args.device, seed=args.seed,
+                     ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
     run = got.out if on_card else got
-    for step, (loss, s) in enumerate(zip(run.losses, run.step_s)):
+    first = run.step - len(run.losses)
+    for step, (loss, s) in enumerate(zip(run.losses, run.step_s), first):
         print(f"step {step:3d} loss {loss:.4f} ({s * 1e3:.0f} ms)")
     result = {"device": args.device, "batch": batch, "losses": run.losses,
               "step_ms": [s * 1e3 for s in run.step_s],

@@ -11,10 +11,15 @@ alternate) checkpointed per ``cfg.remat`` when it trains. Training:
 Serving: ``init_cache`` + ``decode_step`` decode one token against a KV
 cache that is updated in place.
 
-The dense family (gemma3's local:global flags included) and the MoE
+The dense family (gemma3's local:global flags included), the MoE
 family (``moe.py``; every layer MoE, or dense/MoE pairs when
-``every_n_layers`` is 2) are ported. Hybrid, SSM, VLM and audio raise
-``NotImplementedError``: they are ROADMAP Queue 1 item 11.
+``every_n_layers`` is 2), and the VLM and audio families are ported. The
+VLM and audio frontends are stubs, as in the JAX package: precomputed
+patch embeddings come before the text, and EnCodec codes (``K``
+codebooks) are embedded as the sum of each codebook's gather, with ``K``
+output heads. Both keep the dense stacked layers and the dense KV cache.
+Hybrid and SSM raise ``NotImplementedError``: they are ROADMAP Queue 1
+item 11, the port's slice 6.
 """
 from __future__ import annotations
 
@@ -34,11 +39,11 @@ from .layers import (attention_block, attention_block_params,
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm", "audio"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP Queue 1 item 11); the port runs the dense and MoE "
-            f"families")
+            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
+            f"port's slice 6 brings hybrid and ssm (ROADMAP Queue 1 item "
+            f"11); the port runs the dense, MoE, VLM and audio families")
 
 
 def _is_moe_layer(cfg: ModelConfig, i: int) -> bool:
@@ -79,10 +84,15 @@ def _build_params(cfg: ModelConfig, gen, device) -> dict:
     _require_ported(cfg)
     dt, D, V, L = cfg.dtype, cfg.d_model, cfg.padded_vocab, cfg.n_layers
 
-    params: dict = {"final_norm": torch.ones((D,), dtype=dt, device=device),
-                    "embed": normal_init(gen, (V, D), 0.02, dt, device)}
-    if not cfg.tie_embeddings:
-        params["head"] = normal_init(gen, (D, V), 0.02, dt, device)
+    params: dict = {"final_norm": torch.ones((D,), dtype=dt, device=device)}
+    K = cfg.num_codebooks
+    if K:
+        params["embed"] = normal_init(gen, (K, V, D), 0.02, dt, device)
+        params["head"] = normal_init(gen, (D, K * V), 0.02, dt, device)
+    else:
+        params["embed"] = normal_init(gen, (V, D), 0.02, dt, device)
+        if not cfg.tie_embeddings:
+            params["head"] = normal_init(gen, (D, V), 0.02, dt, device)
     if _alternating(cfg):
         n_pairs = L // cfg.moe.every_n_layers
         params["layers"] = {
@@ -222,22 +232,63 @@ def backbone(params, x, cfg: ModelConfig, positions=None):
     return rms_norm(x, params["final_norm"])
 
 
+def _gather_rows(table, ids):
+    """``table[ids]`` as an ``index_select``: its backward is an
+    ``index_add_`` into one zeroed gradient, which sorts nothing on the
+    card (``F.embedding``'s CUDA backward sorts the ids in buffers of
+    its own, which the tracer does not model)."""
+    return table.index_select(0, ids.reshape(-1)).reshape(
+        *ids.shape, table.shape[-1])
+
+
 def embed_inputs(params, batch: dict, cfg: ModelConfig):
+    """Family-specific input embedding; the modality frontends are stubs.
+    VLM: the patch embeddings (cast to ``cfg.dtype``) come before the
+    text's. Audio: the sum over the ``K`` codebooks of each codebook's
+    embedding of its codes ``[B, S, K]`` (the delay pattern is applied
+    upstream)."""
     _require_ported(cfg)
+    if cfg.family == "vlm":
+        text = _gather_rows(params["embed"], batch["tokens"])
+        return torch.cat([batch["patch_embeds"].to(cfg.dtype), text], dim=1)
+    if cfg.family == "audio":
+        return _embed_codes(params["embed"], batch["codes"])
     return F.embedding(batch["tokens"], params["embed"])
 
 
+def _embed_codes(embed, codes):
+    """codes [B, S, K] -> the sum of ``embed[k][codes[..., k]]`` over k,
+    gathered from the ``[K * V, D]`` view of the table."""
+    K, V, D = embed.shape
+    flat = embed.reshape(K * V, D)
+    x = None
+    for k in range(K):
+        e = _gather_rows(flat, codes[..., k] + k * V)
+        x = e if x is None else x + e
+    return x
+
+
 def logits_fn(params, h, cfg: ModelConfig):
+    """h [B, S, D] -> logits [B, S, V], or [B, S, K, V] for audio."""
+    K = cfg.num_codebooks
     if cfg.tie_embeddings:
+        if K:
+            return torch.einsum("bsd,kvd->bskv", h, params["embed"])
         return h @ params["embed"].T
-    return h @ params["head"]
+    out = h @ params["head"]
+    if K:
+        return out.reshape(*h.shape[:2], K, cfg.padded_vocab)
+    return out
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig):
-    """Mean next-token cross-entropy of ``batch`` (tokens, labels)."""
+    """Mean next-token cross-entropy of ``batch`` (tokens or codes, and
+    labels); a VLM's loss covers its text positions only."""
     x = embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     h = backbone(params, x, cfg, positions=positions)
+    if cfg.family == "vlm":
+        h = h[:, batch["patch_embeds"].shape[1]:]
     return cross_entropy_loss(logits_fn(params, h, cfg), batch["labels"])
 
 
@@ -268,8 +319,14 @@ def decode_step(params, cache: dict, batch: dict, cache_len: int,
                 cfg: ModelConfig):
     """One new token for every sequence. Returns ``(logits, cache)``;
     position ``cache_len`` of ``cache`` is written in place. MoE layers
-    dispatch the step's tokens as one group."""
-    x = embed_inputs(params, batch, cfg)       # [B, 1, D]
+    dispatch the step's tokens as one group. A VLM decodes text only
+    (its patches were consumed at prefill); audio decodes codes
+    ``[B, 1, K]``."""
+    if cfg.family == "vlm":
+        x = _gather_rows(params["embed"], batch["tokens"])      # [B, 1, D]
+    else:
+        x = embed_inputs(params, batch, cfg)
+
     window = cfg.attention.sliding_window
     flags = _global_flags(cfg)
     moe_cfg = _decode_moe(cfg)

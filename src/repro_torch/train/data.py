@@ -9,7 +9,8 @@ the same tokens for a seed:
 * per-host sharding by process index;
 * zipfian token distribution so softmax/loss statistics resemble text.
 
-``device_batch`` returns the batch as torch tensors on a given device.
+``device_batch`` returns the batch as torch tensors on a given device
+(``to_device``).
 """
 from __future__ import annotations
 
@@ -74,10 +75,16 @@ class SyntheticDataset:
     def device_batch(self, step: int, device="cuda") -> dict:
         """``batch(step)`` as tensors on ``device``; float arrays take
         the model's dtype."""
-        out = {}
-        for k, v in self.batch(step).items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if t.is_floating_point():
-                t = t.to(self.cfg.dtype)
-            out[k] = t.to(device)
-        return out
+        return to_device(self.cfg, self.batch(step), device)
+
+
+def to_device(cfg: ModelConfig, arrays: dict, device) -> dict:
+    """Numpy arrays as tensors on ``device``; float arrays take
+    ``cfg.dtype``."""
+    out = {}
+    for k, v in arrays.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if t.is_floating_point():
+            t = t.to(cfg.dtype)
+        out[k] = t.to(device)
+    return out

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 from torch.utils import _pytree as pytree
@@ -115,32 +115,48 @@ def make_train_step(cfg: ModelConfig, policy: TrainPolicy
 
 @dataclasses.dataclass
 class TrainRun:
-    losses: list[float]           # each step's loss
+    losses: list[float]           # each step's loss, in this run
     step_s: list[float]           # each step's wall time (synchronized)
+    step: int = 0                 # the next step to run
+    opt_state: Any = None         # made at the first update, or restored
+    torn: bool = False            # an in-place update was cut short
 
 
 def run_steps(fwd_bwd: Callable, update_fn: Callable, opt_init_fn: Callable,
-              params, batch_fn: Callable, steps: int) -> TrainRun:
-    """The training loop: ``steps`` times, ``batch_fn(step)`` (tensors
-    on ``device``), forward+backward, in-place update. The optimizer
-    state is made after the first backward, where the estimator's
-    composition places it. Each step ends with its loss on the host, so
-    its wall time covers the device's work; the gradients and the batch
-    die with the step."""
-    losses, step_s = [], []
-    opt_state = None
-    for step in range(steps):
+              params, batch_fn: Callable, steps: int,
+              run: TrainRun | None = None,
+              on_step: Callable | None = None) -> TrainRun:
+    """The training loop: from ``run.step`` (default: a fresh run from
+    step 0) up to ``steps``, ``batch_fn(step)`` (tensors on
+    ``device``), forward+backward, in-place update, then
+    ``on_step(run)``. Unless ``run`` brings one, the optimizer state is
+    made after the first backward, where the estimator's composition
+    places it. Each step ends with its loss on the host, so its wall
+    time covers the device's work; the gradients and the batch die with
+    the step.
+
+    ``run`` is updated as the loop goes, so a caller that catches an
+    exception holds the last state: ``run.torn`` is set while the update
+    writes ``params`` and the state in place, so an exception there
+    leaves it set (parameters and state partly updated)."""
+    run = TrainRun([], []) if run is None else run
+    while run.step < steps:
         t0 = time.perf_counter()
-        batch = batch_fn(step)
+        batch = batch_fn(run.step)
         loss, grads = fwd_bwd(params, batch)
-        if opt_state is None:
-            opt_state = opt_init_fn(params)
-        update_fn(params, grads, opt_state)
+        if run.opt_state is None:
+            run.opt_state = opt_init_fn(params)
+        run.torn = True
+        update_fn(params, grads, run.opt_state)
+        run.torn = False
         del grads, batch
-        losses.append(loss.item())
+        run.losses.append(loss.item())
         del loss
-        step_s.append(time.perf_counter() - t0)
-    return TrainRun(losses, step_s)
+        run.step_s.append(time.perf_counter() - t0)
+        run.step += 1
+        if on_step is not None:
+            on_step(run)
+    return run
 
 
 def make_estimator_hooks(cfg: ModelConfig, policy: TrainPolicy):

@@ -208,3 +208,66 @@ def test_rejects_what_the_kernel_does_not_take(bad):
     with pytest.raises(ValueError):
         fa.flash_attention_bhsd(q, k, k, **kw)
 
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [112, 48])
+def test_padded_head_dims_vs_jax(d, dtype):
+    # kimi-k2's head dim 112 (and 48) reach a kernel zero-padded to the
+    # next head dim it takes, with the scale of the true one: the plain
+    # version of the padded call equals the plain version at the true d,
+    # and the JAX wrapper's Pallas kernel in interpret mode
+    (q, k, v), (tq, tk, tv) = _make([(2, 40, 8, d), (2, 40, 2, d),
+                                     (2, 40, 2, d)], dtype, seed=d)
+    out = ops.flash_attention(tq, tk, tv, causal=True)
+    assert out.shape == tq.shape and out.dtype == tq.dtype
+    ref = attention_ref(tq.transpose(1, 2), tk.transpose(1, 2),
+                        tv.transpose(1, 2), causal=True).transpose(1, 2)
+    assert (out.float() - ref.float()).abs().max().item() \
+        < (0 if dtype == "float32" else 1e-2) + 1e-6
+    assert _err(out, jax_flash_model(q, k, v, causal=True)) < TOL[dtype]
+    assert fa.launches == 0
+
+
+@pytest.mark.parametrize("dtype,d,padded", [
+    (torch.bfloat16, 112, 128), (torch.bfloat16, 48, 64),
+    (torch.bfloat16, 8, 16), (torch.bfloat16, 200, 256),
+    (torch.float32, 112, 128), (torch.float32, 100, 128),
+    *[(torch.bfloat16, d, d) for d in (16, 32, 64, 128, 256)],
+    *[(torch.float32, d, d) for d in (16, 32, 64, 128, 256)],
+    (torch.bfloat16, 257, None), (torch.float16, 64, None),
+])
+def test_padded_head_dim(dtype, d, padded):
+    # the least head dim a kernel takes; route itself is unchanged, so a
+    # head dim that is its own padding routes as before
+    if padded is None:
+        with pytest.raises(ValueError):
+            fa.padded_head_dim(dtype, d)
+        return
+    assert fa.padded_head_dim(dtype, d) == padded
+    assert fa.route(dtype, padded) in ("sm90", "simt")
+    if padded != d:
+        with pytest.raises(ValueError):
+            fa.route(dtype, d)
+
+
+def test_kimi_head_dim_reaches_the_tensor_core_kernel_padded():
+    cfg = treg.get_config("kimi-k2-1t-a32b")
+    assert cfg.hd == 112
+    assert fa.route(cfg.dtype, fa.padded_head_dim(cfg.dtype, cfg.hd)) \
+        == "sm90"
+
+
+def test_padding_is_traced_outside_the_operator():
+    # three padded copies and the operator's padded output are ordinary
+    # op outputs; the operator allocates only its output
+    from repro_torch.core.tracer import trace_fn
+
+    def attend(q, k, v):
+        return ops.flash_attention(q, k, v, causal=True)
+    q = torch.empty(2, 64, 8, 112, dtype=torch.bfloat16)
+    k = torch.empty(2, 64, 2, 112, dtype=torch.bfloat16)
+    _, tr, _ = trace_fn(attend, q, k, k)
+    sizes = sorted(b.size for b in tr.blocks.values() if b.op != "input")
+    assert sizes == sorted([2 * 64 * 8 * 128 * 2, 2 * 64 * 2 * 128 * 2,
+                            2 * 64 * 2 * 128 * 2, 2 * 64 * 8 * 128 * 2])

@@ -206,11 +206,17 @@ def test_convert_rejects_a_mismatched_tree():
         convert.params_from_numpy(tree, tcfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["musicgen-medium", "xlstm-1.3b",
-                                  "jamba-1.5-large-398b", "internvl2-1b"])
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("entry", ["abstract_params", "embed_inputs"])
+def test_unported_families_raise(arch, entry):
+    # hybrid and ssm; the VLM and audio families are ported
+    # (tests/test_torch_families.py)
+    cfg = treg.get_smoke(arch)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        TM.abstract_params(treg.get_smoke(arch))
+        if entry == "abstract_params":
+            TM.abstract_params(cfg)
+        else:
+            TM.embed_inputs({}, {}, cfg)
 
 
 def test_init_params_seeded_and_in_dtype():

@@ -57,7 +57,7 @@ def test_greedy_tokens_match_jax(impls):
     B, max_len, prompt_len, tokens = 2, 24, 16, 6
     res = tserve.serve(tcfg, B, max_len, prompt_len, tokens, device="cpu",
                        seed=5, params=tp)
-    prompt = tserve.make_prompts(tcfg, B, prompt_len, seed=5)
+    prompt = tserve.make_prompts(tcfg, B, prompt_len, seed=5)["tokens"]
     want = _jax_greedy(jcfg, jp, prompt, max_len, tokens)
     np.testing.assert_array_equal(res.tokens[0], want)
     assert res.peaks is None      # measured only on the card
@@ -117,14 +117,15 @@ print("N", sum(n.startswith("repro_torch") for n in sys.modules))
 print("HAVE", sorted(n for n in sys.modules if n.startswith("repro_torch.")))
 """
 
-# the training and MoE slices' modules, which the walk above must have
-# imported
+# the training, MoE and VLM/audio slices' modules, which the walk above
+# must have imported
 _TRAINING_MODULES = (
     "repro_torch.core.analyzer", "repro_torch.core.cache",
     "repro_torch.core.metrics", "repro_torch.train.optimizer",
     "repro_torch.train.data", "repro_torch.train.train_step",
     "repro_torch.launch.train", "repro_torch.examples.quickstart",
-    "repro_torch.models.moe")
+    "repro_torch.models.moe", "repro_torch.train.checkpoint",
+    "repro_torch.train.elastic")
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():

@@ -313,3 +313,26 @@ def test_tracer_adds_the_buffers_cuda_kernels_make_inside_an_op(grad_layout):
     assert [t for t in temps if t[0] == "aten::sum"] == \
         [("aten::sum", 8 * n, 1)]         # the amax backward's mask count
     assert all(life >= 1 for _, _, life in temps)
+
+
+def test_a_dispatch_mode_keeps_the_engine_from_summing_in_place():
+    # an expected delta of the tracer (PERF.md section 7): without a
+    # Python dispatch mode the autograd engine sums a tensor's gradients
+    # in place (aten::add_) when it holds the only reference; under the
+    # tracer's mode it sums them out of place, so the trace has
+    # allocations the card does not make (chip_smoke's attn_layer)
+    from torch.profiler import ProfilerActivity, profile
+
+    def step(q):
+        q = q.detach().requires_grad_()
+        o = tl.chunked_attention(q, q, q, chunk_q=16, chunk_kv=32)
+        return torch.autograd.grad(o.float().square().mean(), q)[0]
+    q = torch.randn(1, 64, 2, 8)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(q)
+    names = [e.name for e in prof.events()]
+    in_place = names.count("aten::add_")
+    _, tr, _ = trace_fn(step, q, grad=True)
+    traced = sum(b.op == "aten::add" for b in tr.blocks.values())
+    assert in_place > 0
+    assert traced == names.count("aten::add") + in_place
