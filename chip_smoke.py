@@ -47,6 +47,19 @@ non-zero:
 8. audio_main — the same for musicgen-medium at full width and full
    depth (48 layers): prompts of 2048 codes of 4 codebooks, greedy
    decoding per codebook (``audio_*``);
+8a. hybrid_main — the same for jamba-1.5-large-398b at full width, cut
+   to one period of ``attn_every=2`` (``path_config``: one attention
+   layer with a dense MLP, one Mamba layer with the 16-expert MoE;
+   23.8 GB), the sm90 kernel held against the plain version at the
+   admitted batch's shape (``hybrid_kernel``), flash against dense, and
+   ``hybrid_recurrent_parity`` for one full-width Mamba layer;
+8b. ssm_main — the same for xlstm-1.3b at full width (``ssm_*``, depth
+   in ``SSM_SERVING_LAYERS``, whole periods of 7 mLSTM + 1 sLSTM): no
+   attention, so no kernel launch; its decode state is the mLSTM and
+   sLSTM recurrent state. In place of the flash-against-dense parity,
+   ``ssm_recurrent_parity``: one mLSTM and one sLSTM block at full
+   width in f32 on the card, the chunked forms against the one-step
+   decode recurrence;
 9. train   — in a child process of its own (``--train dense``), as a
    training job runs: qwen3-32b at full width, depth cut to 4 layers,
    sequences of 4096: the xMem training gate (``pick_train_batch`` over
@@ -68,7 +81,13 @@ non-zero:
 12. audio_train — the same for musicgen-medium at full width, depth cut
    to 24 layers (``--train audio``). The training paths launch neither
    attention kernel: they train through the chunked attention, as the
-   JAX package does.
+   JAX package does;
+13. ssm_train — the same for xlstm-1.3b at full width, depth cut to
+   whole periods (``--train ssm``);
+14. hybrid_train_gate — the training gate alone for the jamba cut
+   (``--train hybrid``, batch 1): traced on the CPU, replayed at the
+   card's capacity, where it must reject; the estimate without a
+   capacity beside it. Nothing is allocated.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
@@ -99,6 +118,16 @@ REQUESTS = 2
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 VLM_ARCH = "internvl2-1b"
 AUDIO_ARCH = "musicgen-medium"
+SSM_ARCH = "xlstm-1.3b"
+HYBRID_ARCH = "jamba-1.5-large-398b"
+# jamba's period of 8 layers (4 with 16 experts) is 90.48 GB of bf16,
+# over the card's 85 GB: the card serves a period of attn_every=2, one
+# attention layer (dense MLP) and one Mamba layer (MoE), at full width
+HYBRID_PERIOD = 2
+# xlstm-1.3b serving depth, in whole periods of 8: one prefill estimate
+# at 48 layers took 58.0 and 81.6 s of the chip machine's CPU at seq 2048
+# in two runs (PERF.md section 4), over the 60 s allowed in the second
+SSM_SERVING_LAYERS = 32
 # serving paths: arch -> (B, H, Hkv, S, d) of its prefill attention, and
 # the kernels held against the plain version at that shape
 SERVING_SHAPES = {"qwen3-32b": ((8, 64, 8, PROMPT_LEN, 128), ("sm90", "simt")),
@@ -109,6 +138,9 @@ SERVING_SHAPES = {"qwen3-32b": ((8, 64, 8, PROMPT_LEN, 128), ("sm90", "simt")),
 # are taken at the batch their gate admits, from these candidates
 FULL_DEPTH_SERVING = {VLM_ARCH: ("vlm_", 2320, 2304),
                       AUDIO_ARCH: ("audio_", MAX_LEN, PROMPT_LEN)}
+# the recurrent families' serving paths: arch -> (phase prefix, depth)
+RECURRENT_SERVING = {HYBRID_ARCH: ("hybrid_", HYBRID_PERIOD),
+                     SSM_ARCH: ("ssm_", SSM_SERVING_LAYERS)}
 WIDE_CANDIDATES = (256, 128, 64, 32, 16, 8, 4, 2, 1)
 GEMMA_SHAPE = (2, 8, 4, 4096, 256)            # gemma3-4b, head dim 256
 GEMMA_WINDOW = 1024                           # its local layers' window
@@ -124,11 +156,21 @@ PLAIN_BATCH = 8
 # admits its first) and the second admitted. phi3.5-moe at 4 layers fits
 # only with 0.27 GB to spare, and its gate rejects every batch 0.5 GB
 # lower. One musicgen estimate at 48 layers takes about 180 s of CPU
-# (PERF.md section 4), over the 60 s allowed, so it trains 24
+# (PERF.md section 4), over the 60 s allowed, so it trains 24. xLSTM's
+# least depth, one period of 8, already takes about 250 s (its sLSTM's
+# 4096 steps, three times forward and once backward under the trace)
 TRAIN_JOBS = {"dense": ("qwen3-32b", 4, (8, 4, 2, 1)),
               "moe": (MOE_ARCH, 3, (8, 4, 2, 1)),
               "vlm": (VLM_ARCH, 24, (16, 8, 4, 2, 1)),
-              "audio": (AUDIO_ARCH, 24, (64, 32, 16, 8, 4, 2, 1))}
+              "audio": (AUDIO_ARCH, 24, (64, 32, 16, 8, 4, 2, 1)),
+              "ssm": (SSM_ARCH, 8, (32, 16, 8, 4, 2, 1)),
+              "hybrid": (HYBRID_ARCH, HYBRID_PERIOD, (1,))}
+# jobs whose gate must reject every candidate: they allocate nothing
+GATE_ONLY = ("hybrid",)
+# jobs whose measured window records no allocator history: xLSTM's sLSTM
+# step loop makes about 1.4 million requests in 3 steps at 8 layers, and
+# recording each one's stack takes longer than the run may
+UNRECORDED = ("ssm",)
 TRAIN_SEQ = 4096            # TRAIN_4K's sequence length
 TRAIN_STEPS = 3             # the estimator composes 3 iterations
 TRACED_AHEAD = 2            # candidates a training job traces before its turn
@@ -140,11 +182,16 @@ CKPT_JOB = "vlm"            # the job whose final state goes through a checkpoin
 LOGITS_REL_TOL = 5e-2
 # the estimate against the card: |estimate - max_memory_reserved| and
 # |peak_tensor_bytes - max_memory_allocated| over the measured value (the
-# paper's 5 % band; a training job's live tensors are held tighter, the
-# serving path's leave cuBLAS's workspaces unmodeled)
+# paper's 5 % band; a training job's live tensors are held tighter)
 RESERVED_TOL = 0.05
 ALLOCATED_TOL = 0.01
 SERVING_ALLOCATED_TOL = 0.05
+# requests ``align_requests`` aligns in order; longer differing stretches
+# are compared as multisets of sizes
+ALIGN_LIMIT = 20_000
+# the recurrent blocks' chunked forms against their one-step decode in
+# f32 on the card: |chunked - stepped| / max|stepped|
+RECURRENT_REL_TOL = 1e-3
 
 
 _T0 = time.perf_counter()
@@ -222,6 +269,32 @@ def attended_pairs(sq: int, sk: int, causal: bool, window) -> int:
     if window is not None:
         ok &= (q - k) < window
     return int(ok.sum())
+
+
+def path_config(arch: str, n_layers: int | None = None,
+                impl: str | None = None):
+    """``arch``'s full-width config at ``n_layers`` (``None``: its own
+    depth), jamba's period cut to ``HYBRID_PERIOD`` layers; ``impl``
+    sets the attention implementation."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    att = cfg.attention
+    if arch == HYBRID_ARCH:
+        att = dataclasses.replace(att, attn_every=HYBRID_PERIOD)
+    if impl is not None:
+        att = dataclasses.replace(att, impl=impl)
+    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                               attention=att)
+
+
+def attention_layers(cfg) -> int:
+    """The layers of ``cfg`` that attend: each launches the kernel once
+    per prefill."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attention.attn_every
+    return cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
@@ -464,17 +537,13 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
     version at the admitted batch's prefill shape (``kernel`` phase),
     and its rows join ``rows``."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.estimator import XMemEstimator
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve as srv
     from repro_torch.models import model as M
     from repro_torch.train.train_step import make_prefill_step
 
-    base = get_config(arch)
-    cfg = dataclasses.replace(
-        base, n_layers=n_layers or base.n_layers,
-        attention=dataclasses.replace(base.attention, impl="flash"))
+    cfg = path_config(arch, n_layers, impl="flash")
     capacity = srv.device_capacity()
     t0 = time.perf_counter()
     batch, gate = srv.pick_batch(cfg, max_len, capacity,
@@ -483,15 +552,22 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
     if batch is None:
         raise AssertionError(f"no batch fits: {gate['candidates']}")
     # the estimates at the shapes the run below uses (the gate traces
-    # the prefill at a max_len prompt)
+    # the prefill at a max_len prompt), replayed at the card's capacity
+    # as the gate's are: near the ceiling the simulated allocator, as
+    # the card's, frees its cached blocks and retries; ``phase_requests``
+    # takes the prefill's trace from this estimator's cache
     est = XMemEstimator.for_torch_gpu()
+    prefill_fn = srv.make_prefill_fn(cfg)
     cache_abs = M.init_cache(cfg, batch, max_len, device="meta")
+    t0 = time.perf_counter()
     pre_est = est.estimate_serving(
-        srv.make_prefill_fn(cfg), M.abstract_params(cfg), cache_abs,
-        srv.prompt_specs(cfg, batch, prompt_len))
+        prefill_fn, M.abstract_params(cfg), cache_abs,
+        srv.prompt_specs(cfg, batch, prompt_len), capacity=capacity)
+    pre_est_s = time.perf_counter() - t0
     dec_est = gate["decode"]
     emit(f"{prefix}gate", config=cfg.name, n_layers=cfg.n_layers,
-         capacity=capacity, seconds=gate_s, batch=batch,
+         capacity=capacity, seconds=gate_s, prefill_estimate_seconds=pre_est_s,
+         batch=batch,
          candidates=gate["candidates"],
          prefill_estimate=pre_est.peak_bytes,
          prefill_tensor_estimate=pre_est.peak_tensor_bytes,
@@ -523,10 +599,11 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
     for row in rows:
         if row["path"] == arch:
             row["launches"] = by_kernel[row["name"].rsplit("_", 1)[1]]
-    want = cfg.n_layers * REQUESTS
+    want = attention_layers(cfg) * REQUESTS
     if launches != want or by_kernel["sm90"] != want:
         raise AssertionError(f"kernel launched {by_kernel}, expected "
-                             f"{want} (n_layers per prefill), all sm90")
+                             f"{want} (attention layers per prefill), all "
+                             f"sm90")
     # audio: one logit row and one greedy code per codebook
     per_step = (cfg.num_codebooks,) if cfg.num_codebooks else ()
     for lg in res.prefill_logits:
@@ -583,10 +660,15 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
                SERVING_ALLOCATED_TOL)
     del res
     torch.cuda.empty_cache()
-    phase_requests(cfg, params, batch, prefix, max_len, prompt_len)
+    phase_requests(cfg, params, batch, prefix, max_len, prompt_len, est,
+                   prefill_fn)
     phase_profile(cfg, params, batch, prefix, prompt_len)
     if cfg.moe is not None:
         phase_experts(cfg, params, batch, prefix)
+    if cfg.family in ("ssm", "hybrid"):
+        phase_recurrent_parity(cfg, prefix)
+    if not attention_layers(cfg):
+        return
 
     # the kernel path against the dense path at batch 1, same weights
     # (the same argmax per codebook for audio)
@@ -611,26 +693,83 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
         raise AssertionError(f"flash vs dense logits: rel {rel}")
 
 
-def phase_requests(cfg, params, batch: int, prefix: str = "",
-                   max_len: int = MAX_LEN,
-                   prompt_len: int = PROMPT_LEN) -> None:
-    """The card's allocator requests during one prefill against the
-    trace's, aligned by size: what the CPU trace misses or adds."""
+def phase_recurrent_parity(cfg, prefix: str) -> None:
+    """The recurrent blocks of ``cfg`` at full width, f32 weights from a
+    seed, on the card: each block's chunked form over a sequence of one
+    chunk and a part (the mLSTM pads it) against its one-step decode
+    recurrence run over the same sequence from the initial state.
+    xLSTM: one mLSTM and one sLSTM block; jamba: one Mamba block."""
     import torch
-    from repro_torch.core.estimator import XMemEstimator
+    from repro_torch.models import mamba as mam
+    from repro_torch.models import xlstm as xl
+
+    f32, D, H = torch.float32, cfg.d_model, cfg.n_heads
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    B = 2
+    chunk = cfg.xlstm.chunk if cfg.family == "ssm" else cfg.mamba.chunk
+    S = chunk + 44
+    x = torch.randn((B, S, D), generator=gen, device="cuda")
+
+    def stepped(step, state):
+        outs = []
+        for t in range(S):
+            out, state = step(x[:, t:t + 1], state)
+            outs.append(out)
+        return torch.cat(outs, dim=1)
+
+    blocks = {}
+    with torch.no_grad():
+        if cfg.family == "ssm":
+            mp = xl.mlstm_params(gen, D, H, cfg.xlstm, f32, device="cuda")
+            sp = xl.slstm_params(gen, D, H, f32, device="cuda")
+            blocks["mlstm"] = (
+                xl.mlstm_block(x, mp, H, cfg.xlstm),
+                stepped(lambda xt, st: xl.mlstm_decode_step(xt, st, mp, H),
+                        xl.mlstm_init_state(B, D, H, cfg.xlstm,
+                                     device="cuda")))
+            blocks["slstm"] = (
+                xl.slstm_block(x, sp, H, chunk=chunk)[0],
+                stepped(lambda xt, st: xl.slstm_block(xt, sp, H, chunk=1,
+                                                      state=st),
+                        xl.slstm_init_state(B, D, device="cuda")))
+        else:
+            mp = mam.mamba_params(gen, D, cfg.mamba, f32, device="cuda")
+            blocks["mamba"] = (
+                mam.mamba_block(x, mp, cfg.mamba)[0],
+                stepped(lambda xt, st: mam.mamba_decode_step(xt, st, mp,
+                                                             cfg.mamba),
+                        mam.mamba_init_state(B, D, cfg.mamba, device="cuda")))
+    rel = {name: ((a - b).abs().max() / b.abs().max()).item()
+           for name, (a, b) in blocks.items()}
+    finite = all(bool(torch.isfinite(a).all().item())
+                 for a, _ in blocks.values())
+    emit(f"{prefix}recurrent_parity", batch=B, seq_len=S, chunk=chunk,
+         rel_err=rel, tol=RECURRENT_REL_TOL, finite=finite,
+         memory=device_memory())
+    del blocks, x
+    torch.cuda.empty_cache()
+    if not finite or not all(r < RECURRENT_REL_TOL for r in rel.values()):
+        raise AssertionError(f"chunked vs stepped recurrence: {rel}")
+
+
+def phase_requests(cfg, params, batch: int, prefix: str, max_len: int,
+                   prompt_len: int, est, prefill_fn) -> None:
+    """The card's allocator requests during one prefill against the
+    trace's, aligned by size: what the CPU trace misses or adds. The
+    trace is the one ``est`` made of ``prefill_fn`` at these shapes."""
     from repro_torch.core.baselines.directprobe import measured_peak
     from repro_torch.core.events import BlockKind, Phase
     from repro_torch.launch import serve as srv
     from repro_torch.models import model as M
     from repro_torch.train.train_step import make_prefill_step
 
-    entry = XMemEstimator.for_torch_gpu()._trace_phase(
-        srv.make_prefill_fn(cfg),
+    entry = est._trace_phase(
+        prefill_fn,
         [(M.abstract_params(cfg), BlockKind.PARAM, "params"),
          (M.init_cache(cfg, batch, max_len, device="meta"), BlockKind.CACHE,
           "cache"),
          (srv.prompt_specs(cfg, batch, prompt_len), BlockKind.INPUT,
-          "batch")], Phase.DECODE)
+          "batch")], Phase.DECODE, tag="serve")
     traced = [(b.size, b.op)   # requested bytes, as the card reports
               for b in sorted(entry.lifecycles, key=lambda b: b.alloc_t)
               if b.op != "input"]
@@ -648,8 +787,19 @@ def phase_requests(cfg, params, batch: int, prefix: str = "",
 def align_requests(traced, card) -> tuple[list, list]:
     """Two request streams, ``(bytes, where)`` each, aligned by size:
     the card's requests the trace lacks, and the trace's the card does
-    not make."""
+    not make. The common head and tail match without a search; the
+    rest is aligned by ``difflib`` (quadratic in the worst case, so a
+    middle of more than ``ALIGN_LIMIT`` requests is compared as two
+    multisets of sizes instead)."""
     import difflib
+    n = min(len(traced), len(card))
+    head = next((i for i in range(n) if traced[i][0] != card[i][0]), n)
+    tail = next((i for i in range(n - head)
+                 if traced[-1 - i][0] != card[-1 - i][0]), n - head)
+    traced = traced[head:len(traced) - tail]
+    card = card[head:len(card) - tail]
+    if max(len(traced), len(card)) > ALIGN_LIMIT:
+        return surplus(card, traced), surplus(traced, card)
     card_only, trace_only = [], []
     matcher = difflib.SequenceMatcher(None, [s for s, _ in traced],
                                       [s for s, _ in card], autojunk=False)
@@ -658,6 +808,18 @@ def align_requests(traced, card) -> tuple[list, list]:
             trace_only += traced[i1:i2]
             card_only += card[j1:j2]
     return card_only, trace_only
+
+
+def surplus(a, b) -> list:
+    """The requests of ``a`` beyond those of the same size in ``b``."""
+    left = collections.Counter(size for size, _ in a)
+    left.subtract(size for size, _ in b)
+    out = []
+    for r in a:
+        if left[r[0]] > 0:
+            left[r[0]] -= 1
+            out.append(r)
+    return out
 
 
 def phase_experts(cfg, params, batch: int, prefix: str) -> None:
@@ -852,7 +1014,6 @@ def phase_train(job: str) -> None:
 
     import torch
     from torch.utils import _pytree as pytree
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import smoke_shape
     from repro_torch.configs.registry import input_specs
     from repro_torch.core.estimator import XMemEstimator
@@ -864,7 +1025,7 @@ def phase_train(job: str) -> None:
 
     prefix = "" if job == "dense" else f"{job}_"
     arch, n_layers, candidates = TRAIN_JOBS[job]
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    cfg = path_config(arch, n_layers)
     policy = TrainPolicy()          # AdamW, clip_norm 1.0, 1 microbatch
     est = XMemEstimator.for_torch_gpu()
     trace_s = []
@@ -887,7 +1048,14 @@ def phase_train(job: str) -> None:
          capacity=capacity, seconds=gate["seconds"],
          trace_seconds={str(b): x for b, x in zip(candidates, trace_s)},
          trace_cache=gate["trace_cache"], candidates=gate["candidates"],
-         batch=batch, memory=memory)
+         batch=batch, memory=memory, **(
+             gate_only_estimate(cfg, policy, candidates[0], est)
+             if job in GATE_ONLY else {}))
+    if job in GATE_ONLY:
+        if batch is not None:
+            raise AssertionError(f"{cfg.name} at {n_layers} layers: the gate "
+                                 f"admitted batch {batch}")
+        return
     if batch is None:
         raise AssertionError(f"no training batch fits {cfg.name} at "
                              f"{n_layers} layers")
@@ -896,8 +1064,9 @@ def phase_train(job: str) -> None:
     params = M.init_params(cfg, 0, device="cuda")
     torch.cuda.synchronize()
     fa.reset_launches()
+    history = job not in UNRECORDED
     got = trn.train_loop(cfg, shape, policy, steps=TRAIN_STEPS,
-                         device="cuda", params=params, history=True)
+                         device="cuda", params=params, history=history)
     launches = dict(fa.launches_by_kernel)
     run = got.out
     if not all(math.isfinite(x) for x in run.losses):
@@ -923,18 +1092,33 @@ def phase_train(job: str) -> None:
          card_allocs=got.n_allocs, trace_allocs=sum(traced.values()),
          card_alloc_retries=got.n_alloc_retries,
          card_stream_sim=replay_card_stream(
-             got.events, pytree.tree_leaves(params), capacity),
+             got.events, pytree.tree_leaves(params), capacity)
+         if history else None,
          card_segments_created=got.n_segments_created,
          segments_mib=sorted(round(x / 2**20, 1) for x in got.segment_sizes),
          sim_segments_mib=sorted(round(s["size"] / 2**20, 1)
                                  for s in rep.sim.segments),
          phase_peaks=rep.breakdown["phase_peaks"], memory=device_memory())
-    emit_train_requests(got.allocs, traced, prefix)
+    if history:
+        emit_train_requests(got.allocs, traced, prefix)
     within(f"{cfg.name} training reserved", rel_reserved, RESERVED_TOL)
     within(f"{cfg.name} training allocated", rel_allocated, ALLOCATED_TOL)
     if job == CKPT_JOB:
         phase_checkpoint({"params": params, "opt_state": run.opt_state},
                          run.step, prefix)
+
+
+def gate_only_estimate(cfg, policy, batch: int, est) -> dict:
+    """The training estimate of ``batch`` with no capacity (the cached
+    traces replayed unbounded): the whole peak the gate rejected, and
+    its persistent part (parameters, AdamW state)."""
+    from repro_torch.configs.base import smoke_shape
+    from repro_torch.launch import train as trn
+    _, rep = trn.admission_check(cfg, policy, smoke_shape(TRAIN_SEQ, batch),
+                                 1 << 62, est)
+    return {"unbounded_estimate": rep.peak_bytes,
+            "unbounded_tensor_estimate": rep.peak_tensor_bytes,
+            "persistent": rep.persistent_bytes}
 
 
 def phase_checkpoint(state: dict, step: int, prefix: str) -> None:
@@ -1073,6 +1257,10 @@ def main() -> int:
             phase_serving(rows, arch, prefix, n_layers=None, max_len=max_len,
                           prompt_len=prompt_len, candidates=WIDE_CANDIDATES,
                           kernel_rows=True)
+        for arch, (prefix, n_layers) in RECURRENT_SERVING.items():
+            phase_serving(rows, arch, prefix, n_layers=n_layers,
+                          candidates=WIDE_CANDIDATES,
+                          kernel_rows=arch == HYBRID_ARCH)
         # this process keeps only its context and workspace on the card
         torch.cuda.empty_cache()
         for job, child in jobs.items():

@@ -56,6 +56,10 @@ class AllocatorPolicy:
     single_pool: bool = False   # XLA BFC has no small/large split
     growth_doubling: bool = False  # XLA BFC grows regions by doubling
     arena: bool = False         # TPU arena: compacting, no external frag
+    # a refused grant releases every cached segment before the retry,
+    # with no partial reclaim first (torch's release_available_cached_
+    # blocks does nothing while max_split_size is unset, its default)
+    reclaim_all: bool = False
 
 
 # PyTorch CUDACachingAllocator constants (c10/cuda/CUDACachingAllocator.cpp).
@@ -64,6 +68,13 @@ CUDA_CACHING = AllocatorPolicy(
     small_buffer=2 * MiB, large_buffer=20 * MiB, min_large_alloc=10 * MiB,
     round_large=2 * MiB, device_page=2 * MiB, split_remainder_large=1 * MiB,
 )
+
+# The same allocator as torch 2.11 runs it with its default settings
+# (no max_split_size): a refused cudaMalloc frees every cached segment,
+# of both pools, and retries once. The preset of the port's estimator;
+# CUDA_CACHING stays the JAX package's copy, bit for bit.
+CUDA_CACHING_TORCH = dataclasses.replace(
+    CUDA_CACHING, name="cuda_caching_torch", reclaim_all=True)
 
 # TF/XLA GPU BFC allocator: 256-byte alignment, one pool, doubling regions.
 XLA_BFC = AllocatorPolicy(
@@ -101,8 +112,9 @@ HOST_PAGEABLE_MALLOC = AllocatorPolicy(
     single_pool=True, arena=True,
 )
 
-POLICIES = {p.name: p for p in (CUDA_CACHING, XLA_BFC, TPU_ARENA,
-                                HOST_PINNED_ARENA, HOST_PAGEABLE_MALLOC)}
+POLICIES = {p.name: p for p in (CUDA_CACHING, CUDA_CACHING_TORCH, XLA_BFC,
+                                TPU_ARENA, HOST_PINNED_ARENA,
+                                HOST_PAGEABLE_MALLOC)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -377,7 +389,7 @@ class CachingAllocatorSim:
         else:
             seg_size = self.allocation_size(size)
             block = self._new_segment(pool_name, seg_size)
-            if block is None:
+            if block is None and not self.policy.reclaim_all:
                 # L2 refused: reclaim ladder (paper §3.4(v)).
                 self._release_cached(pool_name, seg_size)
                 block = self._new_segment(pool_name, seg_size)

@@ -34,7 +34,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..obs import spans as obs_spans
-from .allocator import AllocatorPolicy, CUDA_CACHING
+from .allocator import AllocatorPolicy, CUDA_CACHING, CUDA_CACHING_TORCH
 from .analyzer import classify_blocks
 from .cache import BlockInfo, TraceCache, TracedPhase, trace_key
 from .events import (BlockKind, BlockLifecycle, PeriodicBlocks, Phase,
@@ -113,7 +113,9 @@ class XMemEstimator:
 
     @classmethod
     def for_torch_gpu(cls, **kw) -> "XMemEstimator":
-        """The CUDA caching allocator simulation with eager semantics:
+        """The CUDA caching allocator simulation as torch runs it
+        (``CUDA_CACHING_TORCH``: a refused segment grant releases every
+        cached segment before the retry) with eager semantics:
         no fusion folding, no donation, and every gradient alive until
         the in-place update that reads it has finished
         (``grad_release="after_update"``). No synthetic f32 copies of
@@ -122,7 +124,7 @@ class XMemEstimator:
         leaf, and the JAX preset's all-gradients-at-once copies would
         add twice the gradient bytes the card never allocates. A training
         job's first iteration allocates cuBLAS's workspaces."""
-        kw.setdefault("allocator_policy", CUDA_CACHING)
+        kw.setdefault("allocator_policy", CUDA_CACHING_TORCH)
         kw.setdefault("cublas_workspace", CUBLAS_WORKSPACE_BYTES)
         kw.setdefault("orchestrator_policy", OrchestratorPolicy(
             grad_release="after_update", donate_params=False,
@@ -456,7 +458,8 @@ class XMemEstimator:
     def estimate_serving(self, step_fn: Callable, params, cache, batch,
                          capacity: int | None = None) -> EstimateReport:
         """Single-phase estimate of a serving step ``step_fn(params,
-        cache, batch)`` with a persistent cache."""
+        cache, batch)`` with a persistent cache; in the GPU preset the
+        replay adds cuBLAS's workspace at the step's first matmul."""
         t0 = time.perf_counter()
         entry = self._trace_phase(
             step_fn,
@@ -468,9 +471,13 @@ class XMemEstimator:
         blocks = self.orchestrator.mark_persistent(
             blocks, kinds=(BlockKind.PARAM, BlockKind.CACHE))
         blocks = self.orchestrator.fold_fused(blocks)
+        # the serving thread's cuBLAS workspace, from its first matmul on;
+        # held for good, not the step's: no part of the persistent bytes
+        workspace = (self._cublas_workspaces(blocks)
+                     if self.cublas_workspace else [])
         sim = MemorySimulator(self.allocator_policy,
                               capacity or self.capacity,
-                              engine="columnar").replay(blocks)
+                              engine="columnar").replay(blocks + workspace)
         by_kind: dict[str, int] = {}
         for b in blocks:
             if b.free_t is None:

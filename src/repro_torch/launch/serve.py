@@ -14,12 +14,16 @@ estimate.
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b \
       --max-len 2320 --tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+      --max-len 2064 --tokens 16
 
 ``--max-len`` counts every position of the cache: a VLM's patches, the
 prompt and the decoded tokens.
 
 As in the JAX package, prefill returns the last position's logits and
-does not fill the KV cache; decoding starts at cache position 0.
+does not fill the decode state (a KV cache, or the hybrid and SSM
+families' recurrent state); decoding starts at cache position 0 from
+``init_cache``'s state.
 """
 from __future__ import annotations
 
@@ -101,6 +105,22 @@ def make_prefill_fn(cfg):
     def prefill(params, cache, batch):
         return step(params, batch), cache
     return prefill
+
+
+def serving_cache_profile(cfg, max_len: int,
+                          probe_delta: int = 8) -> tuple[int, int]:
+    """(kv_bytes_per_token, resident_bytes_per_request) of ``cfg``'s
+    decode cache: the finite difference of ``init_cache`` totals on
+    ``meta`` tensors at two max lengths (batch 1). The slope is the
+    KV footprint each position adds; the intercept is the per-request
+    state that does not grow with the length (the recurrent state of
+    the ssm and hybrid families)."""
+    def total(n):
+        return sum(t.numel() * t.element_size() for t in
+                   M.init_cache(cfg, 1, n, device="meta").values())
+    lo, hi = total(max_len), total(max_len + probe_delta)
+    kv_tok = max((hi - lo) // probe_delta, 0)
+    return kv_tok, max(lo - kv_tok * max_len, 0)
 
 
 def device_capacity(device="cuda") -> int:
@@ -213,8 +233,7 @@ def serve(cfg, batch: int, max_len: int, prompt_len: int, tokens: int,
     all_tokens, all_logits, pre_s, dec_s = [], [], [], []
     for r in range(requests):
         prompt = device_prompts(cfg, batch, prompt_len, seed + r, device)
-        cache["k"].zero_()
-        cache["v"].zero_()
+        M.reset_cache(cache)
         logits, seconds = run("prefill", prefill, params, prompt)
         pre_s.append(seconds)
         tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]

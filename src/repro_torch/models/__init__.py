@@ -1,7 +1,8 @@
-"""Model zoo of the port: the dense and MoE decoder families."""
-from . import convert, layers, model, moe
+"""Model zoo of the port: every family of the JAX package's."""
+from . import convert, layers, mamba, model, moe, xlstm
 from .model import (abstract_params, backbone, decode_step, init_cache,
                     init_params, logits_fn, loss_fn)
 
-__all__ = ["convert", "layers", "model", "moe", "abstract_params", "backbone",
-           "decode_step", "init_cache", "init_params", "logits_fn", "loss_fn"]
+__all__ = ["convert", "layers", "mamba", "model", "moe", "xlstm",
+           "abstract_params", "backbone", "decode_step", "init_cache",
+           "init_params", "logits_fn", "loss_fn"]

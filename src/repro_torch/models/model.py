@@ -1,25 +1,33 @@
-"""Decoder LM, dense and MoE families (PyTorch port of
+"""Unified decoder LM over all families (PyTorch port of
 ``repro.models.model``).
 
 Parameters are a plain dict with the JAX pytree's key paths and the
-per-layer weights stacked ``[L, ...]``, so a JAX parameter tree converts
-name for name (``convert.py``) and parameter bytes match byte for byte.
-The JAX package's ``lax.scan`` over the stack is a Python loop over
-layer views here, each layer (each dense/MoE pair, when MoE layers
-alternate) checkpointed per ``cfg.remat`` when it trains. Training:
-``loss_fn``; its gradients keep the stacked shapes (``_LayerSlice``).
-Serving: ``init_cache`` + ``decode_step`` decode one token against a KV
-cache that is updated in place.
+per-layer weights stacked ``[L, ...]`` (per period, for the hybrid and
+SSM families), so a JAX parameter tree converts name for name
+(``convert.py``) and parameter bytes match byte for byte. The JAX
+package's ``lax.scan`` over the stack is a Python loop over layer views
+here, each layer (each dense/MoE pair, each period) checkpointed per
+``cfg.remat`` when it trains. Training: ``loss_fn``; its gradients keep
+the stacked shapes (``_LayerSlice``). Serving: ``init_cache`` +
+``decode_step`` decode one token against a state that is updated in
+place.
 
-The dense family (gemma3's local:global flags included), the MoE
-family (``moe.py``; every layer MoE, or dense/MoE pairs when
-``every_n_layers`` is 2), and the VLM and audio families are ported. The
-VLM and audio frontends are stubs, as in the JAX package: precomputed
-patch embeddings come before the text, and EnCodec codes (``K``
-codebooks) are embedded as the sum of each codebook's gather, with ``K``
-output heads. Both keep the dense stacked layers and the dense KV cache.
-Hybrid and SSM raise ``NotImplementedError``: they are ROADMAP Queue 1
-item 11, the port's slice 6.
+Families and their stacks, as in the reference:
+
+* dense (gemma3's local:global flags included), MoE (every layer, or
+  dense/MoE pairs when ``every_n_layers`` is 2), VLM and audio: stacked
+  decoder layers and a KV cache. The VLM and audio frontends are stubs:
+  precomputed patch embeddings come before the text, and EnCodec codes
+  (``K`` codebooks) are embedded as the sum of each codebook's gather,
+  with ``K`` output heads;
+* hybrid (jamba): periods of ``attn_every`` layers, ``pos0`` an
+  attention layer and ``pos1..`` Mamba layers (``mamba.py``), each with
+  the dense or MoE FFN its position gives; a KV cache for ``pos0`` and
+  Mamba (h, conv) state for the rest;
+* ssm (xLSTM): periods of ``slstm_every`` blocks, ``slstm_every - 1``
+  mLSTM blocks stacked ``[n_periods, n_m, ...]`` and one sLSTM
+  (``xlstm.py``); each mLSTM block is checkpointed inside its period;
+  the decode state is mLSTM (C, n, m) and sLSTM (h, c, n, m).
 """
 from __future__ import annotations
 
@@ -32,18 +40,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from . import mamba as mam
 from . import moe as moe_mod
+from . import xlstm as xl
 from .layers import (attention_block, attention_block_params,
                      attention_decode_block, cross_entropy_loss, mlp_params,
                      normal_init, rms_norm, swiglu)
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
-            f"port's slice 6 brings hybrid and ssm (ROADMAP Queue 1 item "
-            f"11); the port runs the dense, MoE, VLM and audio families")
 
 
 def _is_moe_layer(cfg: ModelConfig, i: int) -> bool:
@@ -80,8 +82,32 @@ def _layer_params(cfg: ModelConfig, gen, device, n: int,
     return p
 
 
+def _mamba_layer_params(cfg: ModelConfig, gen, device, n: int,
+                        moe_layer: bool) -> dict:
+    """``n`` stacked Mamba layers' weights, with the layer's FFN."""
+    dt, D = cfg.dtype, cfg.d_model
+    p = {
+        "ln1": torch.ones((n, D), dtype=dt, device=device),
+        "ln2": torch.ones((n, D), dtype=dt, device=device),
+        "mamba": mam.mamba_params(gen, D, cfg.mamba, dt, device=device,
+                                  lead=(n,)),
+    }
+    if moe_layer:
+        p["moe"] = moe_mod.moe_params(gen, D, cfg.d_ff, cfg.moe.num_experts,
+                                      dt, device=device, lead=(n,))
+    elif cfg.d_ff:
+        p["mlp"] = mlp_params(gen, D, cfg.d_ff, dt, device=device, lead=(n,))
+    return p
+
+
+def _periods(cfg: ModelConfig) -> tuple[int, int]:
+    """(periods, layers in a period) of the hybrid and SSM stacks."""
+    period = (cfg.xlstm.slstm_every if cfg.family == "ssm"
+              else cfg.attention.attn_every)
+    return cfg.n_layers // period, period
+
+
 def _build_params(cfg: ModelConfig, gen, device) -> dict:
-    _require_ported(cfg)
     dt, D, V, L = cfg.dtype, cfg.d_model, cfg.padded_vocab, cfg.n_layers
 
     params: dict = {"final_norm": torch.ones((D,), dtype=dt, device=device)}
@@ -93,7 +119,21 @@ def _build_params(cfg: ModelConfig, gen, device) -> dict:
         params["embed"] = normal_init(gen, (V, D), 0.02, dt, device)
         if not cfg.tie_embeddings:
             params["head"] = normal_init(gen, (D, V), 0.02, dt, device)
-    if _alternating(cfg):
+    if cfg.family == "ssm":
+        n_periods, period = _periods(cfg)
+        params["layers"] = {
+            "mlstm": xl.mlstm_params(gen, D, cfg.n_heads, cfg.xlstm, dt,
+                                     device=device,
+                                     lead=(n_periods, period - 1)),
+            "slstm": xl.slstm_params(gen, D, cfg.n_heads, dt, device=device,
+                                     lead=(n_periods,))}
+    elif cfg.family == "hybrid":
+        n_periods, period = _periods(cfg)
+        params["layers"] = {
+            f"pos{pos}": (_layer_params if pos == 0 else _mamba_layer_params)(
+                cfg, gen, device, n_periods, _is_moe_layer(cfg, pos))
+            for pos in range(period)}
+    elif _alternating(cfg):
         n_pairs = L // cfg.moe.every_n_layers
         params["layers"] = {
             "dense": _layer_params(cfg, gen, device, n_pairs, False),
@@ -132,6 +172,10 @@ class _LayerSlice(torch.autograd.Function):
     """Layer ``i``'s view of a stacked ``[L, ...]`` leaf whose backward
     writes the layer's gradient into one stacked gradient, the leaf's
     ``.grad`` (zeros at the first write), and hands autograd nothing.
+    ``i`` is an int, or an index tuple such as ``(p, j)`` into a leaf
+    stacked two levels deep (``[n_periods, n_m, ...]``): one slice of
+    the leaf, never a slice of a slice, whose backward would write the
+    ``.grad`` of a non-leaf.
 
     A plain ``leaf[i]`` under autograd gives each layer a
     ``select_backward``: a zero-filled gradient the size of the whole
@@ -154,9 +198,10 @@ class _LayerSlice(torch.autograd.Function):
         return None, None
 
 
-def layer_params(layers: dict, i: int) -> dict:
-    """Layer ``i``'s weights: views into the stacked ``[L, ...]`` tree
-    (through ``_LayerSlice`` for leaves that take a gradient)."""
+def layer_params(layers: dict, i) -> dict:
+    """Layer ``i``'s weights (``i`` an int or an index tuple): views
+    into the stacked tree (through ``_LayerSlice`` for leaves that take
+    a gradient)."""
     def take(v):
         if isinstance(v, dict):
             return layer_params(v, i)
@@ -173,6 +218,11 @@ def _decoder_layer(x, lp, cfg: ModelConfig, *, is_global=None,
         rms_norm(x, lp["ln1"]), lp["attn"], cfg.attention, cfg.n_heads,
         cfg.n_kv_heads, cfg.hd, positions=positions, is_global=is_global,
         window=window)
+    return _ffn(x + h, lp, cfg.moe)
+
+
+def _mamba_layer(x, lp, cfg: ModelConfig):
+    h, _ = mam.mamba_block(rms_norm(x, lp["ln1"]), lp["mamba"], cfg.mamba)
     return _ffn(x + h, lp, cfg.moe)
 
 
@@ -212,8 +262,40 @@ def _remat(fn, cfg: ModelConfig):
 
 def backbone(params, x, cfg: ModelConfig, positions=None):
     """x: [B, S, D] embedded inputs -> final hidden states."""
-    _require_ported(cfg)
     layers = params["layers"]
+    if cfg.family == "ssm":
+        n_periods, period = _periods(cfg)
+        xcfg = cfg.xlstm
+
+        def m_body(h, mp):
+            return h + xl.mlstm_block(h, mp, cfg.n_heads, xcfg)
+        m_layer = _remat(m_body, cfg)
+
+        def period_body(h, mlstm_lps, slstm_lp):
+            for mp in mlstm_lps:
+                h = m_layer(h, mp)
+            s_out, _ = xl.slstm_block(h, slstm_lp, cfg.n_heads,
+                                      chunk=xcfg.chunk)
+            return h + s_out
+        body = _remat(period_body, cfg)
+        for p in range(n_periods):
+            x = body(x, [layer_params(layers["mlstm"], (p, j))
+                         for j in range(period - 1)],
+                     layer_params(layers["slstm"], p))
+        return rms_norm(x, params["final_norm"])
+    if cfg.family == "hybrid":
+        n_periods, period = _periods(cfg)
+
+        def period_body(h, lps):
+            h = _decoder_layer(h, lps[0], cfg, positions=positions)
+            for lp in lps[1:]:
+                h = _mamba_layer(h, lp, cfg)
+            return h
+        body = _remat(period_body, cfg)
+        for p in range(n_periods):
+            x = body(x, [layer_params(layers[f"pos{pos}"], p)
+                         for pos in range(period)])
+        return rms_norm(x, params["final_norm"])
     if _alternating(cfg):
         def pair(h, dense_lp, moe_lp):
             h = _decoder_layer(h, dense_lp, cfg, positions=positions)
@@ -247,7 +329,6 @@ def embed_inputs(params, batch: dict, cfg: ModelConfig):
     text's. Audio: the sum over the ``K`` codebooks of each codebook's
     embedding of its codes ``[B, S, K]`` (the delay pattern is applied
     upstream)."""
-    _require_ported(cfg)
     if cfg.family == "vlm":
         text = _gather_rows(params["embed"], batch["tokens"])
         return torch.cat([batch["patch_embeds"].to(cfg.dtype), text], dim=1)
@@ -294,19 +375,58 @@ def loss_fn(params, batch: dict, cfg: ModelConfig):
 
 # ---------------------------------------------------------------------------
 # serving: cache init + one-token decode
+#: the value each decode-state leaf starts from (the rest: zeros). The
+#: sLSTM state starts all zeros, as the reference's ``init_cache`` has it,
+#: not at ``slstm_init_state``'s n = 1e-6, m = -1e30.
+_CACHE_FILL = {"mlstm_m": -1e30}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> dict:
-    """Persistent decode state: stacked KV caches ``[L, B, max_len, Hkv,
-    hd]`` in ``cfg.dtype`` (alternating dense/MoE layers included: layer
-    ``2p`` is pair ``p``'s dense layer, ``2p + 1`` its MoE layer)."""
-    _require_ported(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    """Persistent decode state, by family, with the reference's keys,
+    shapes and dtypes: stacked KV caches ``[L, B, max_len, Hkv, hd]`` in
+    ``cfg.dtype`` (alternating dense/MoE layers included: layer ``2p``
+    is pair ``p``'s dense layer, ``2p + 1`` its MoE layer); hybrid: KV
+    ``[n_periods, ...]`` for ``pos0`` and f32 Mamba (h, conv) state
+    ``[n_periods, period - 1, B, ...]``; ssm: f32 mLSTM (C, n, m)
+    ``[n_periods, n_m, B, H, ...]`` and sLSTM (h, c, n, m) stacked
+    ``[n_periods, 4, B, D]``."""
+    f32 = torch.float32
+    kv = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    if cfg.family == "ssm":
+        n_periods, period = _periods(cfg)
+        dk, dv = xl._mlstm_dims(cfg.d_model, cfg.n_heads, cfg.xlstm)
+        lead = (n_periods, period - 1, batch, cfg.n_heads)
+        shapes = {"mlstm_C": (lead + (dk, dv), f32),
+                  "mlstm_n": (lead + (dk,), f32),
+                  "mlstm_m": (lead, f32),
+                  "slstm": ((n_periods, 4, batch, cfg.d_model), f32)}
+    elif cfg.family == "hybrid":
+        n_periods, period = _periods(cfg)
+        m = cfg.mamba
+        d_inner = m.expand * cfg.d_model
+        lead = (n_periods, period - 1, batch)
+        shapes = {"k": ((n_periods,) + kv, cfg.dtype),
+                  "v": ((n_periods,) + kv, cfg.dtype),
+                  "mamba_h": (lead + (d_inner, m.d_state), f32),
+                  "mamba_conv": (lead + (m.d_conv - 1, d_inner), f32)}
+    else:
+        shapes = {"k": ((cfg.n_layers,) + kv, cfg.dtype),
+                  "v": ((cfg.n_layers,) + kv, cfg.dtype)}
+    return {name: torch.full(shape, _CACHE_FILL.get(name, 0.0), dtype=dt,
+                             device=device)
+            for name, (shape, dt) in shapes.items()}
+
+
+def reset_cache(cache: dict) -> dict:
+    """``cache`` back to ``init_cache``'s values, in place."""
+    for name, t in cache.items():
+        t.fill_(_CACHE_FILL.get(name, 0.0))
+    return cache
 
 
 def _decode_layers(params, cfg: ModelConfig) -> list[dict]:
-    """Every layer's weights in cache order."""
+    """Every layer's weights in cache order (KV-cache families)."""
     layers = params["layers"]
     if _alternating(cfg):
         return [layer_params(layers["moe" if _is_moe_layer(cfg, i)
@@ -318,26 +438,76 @@ def _decode_layers(params, cfg: ModelConfig) -> list[dict]:
 def decode_step(params, cache: dict, batch: dict, cache_len: int,
                 cfg: ModelConfig):
     """One new token for every sequence. Returns ``(logits, cache)``;
-    position ``cache_len`` of ``cache`` is written in place. MoE layers
-    dispatch the step's tokens as one group. A VLM decodes text only
-    (its patches were consumed at prefill); audio decodes codes
-    ``[B, 1, K]``."""
+    the step's state is written into ``cache`` in place (KV position
+    ``cache_len``; the recurrent states whole). MoE layers dispatch the
+    step's tokens as one group. A VLM decodes text only (its patches
+    were consumed at prefill); audio decodes codes ``[B, 1, K]``."""
     if cfg.family == "vlm":
         x = _gather_rows(params["embed"], batch["tokens"])      # [B, 1, D]
     else:
         x = embed_inputs(params, batch, cfg)
 
-    window = cfg.attention.sliding_window
-    flags = _global_flags(cfg)
-    moe_cfg = _decode_moe(cfg)
-    for i, lp in enumerate(_decode_layers(params, cfg)):
-        a_out, _, _ = attention_decode_block(
-            rms_norm(x, lp["ln1"]), lp["attn"], cfg.attention, cfg.n_heads,
-            cfg.n_kv_heads, cfg.hd, cache["k"][i], cache["v"][i], cache_len,
-            window=window, is_global=None if flags is None else flags[i])
-        x = _ffn(x + a_out, lp, moe_cfg)
+    if cfg.family == "ssm":
+        x = _decode_ssm(params["layers"], cache, x, cfg)
+    elif cfg.family == "hybrid":
+        x = _decode_hybrid(params["layers"], cache, x, cache_len, cfg)
+    else:
+        window = cfg.attention.sliding_window
+        flags = _global_flags(cfg)
+        moe_cfg = _decode_moe(cfg)
+        for i, lp in enumerate(_decode_layers(params, cfg)):
+            a_out, _, _ = attention_decode_block(
+                rms_norm(x, lp["ln1"]), lp["attn"], cfg.attention,
+                cfg.n_heads, cfg.n_kv_heads, cfg.hd, cache["k"][i],
+                cache["v"][i], cache_len, window=window,
+                is_global=None if flags is None else flags[i])
+            x = _ffn(x + a_out, lp, moe_cfg)
     h = rms_norm(x, params["final_norm"])
     return logits_fn(params, h, cfg), cache
+
+
+def _write(dst, src) -> None:
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
+def _decode_ssm(layers, cache, x, cfg: ModelConfig):
+    n_periods, period = _periods(cfg)
+    for p in range(n_periods):
+        for j in range(period - 1):
+            state = tuple(cache[k][p, j] for k in ("mlstm_C", "mlstm_n",
+                                                   "mlstm_m"))
+            out, new = xl.mlstm_decode_step(
+                x, state, layer_params(layers["mlstm"], (p, j)), cfg.n_heads)
+            _write(state, new)
+            x = x + out
+        state = cache["slstm"][p].unbind(0)
+        s_out, new = xl.slstm_block(x, layer_params(layers["slstm"], p),
+                                    cfg.n_heads, chunk=1, state=state)
+        _write(state, new)
+        x = x + s_out
+    return x
+
+
+def _decode_hybrid(layers, cache, x, cache_len: int, cfg: ModelConfig):
+    n_periods, period = _periods(cfg)
+    moe_cfg = _decode_moe(cfg)
+    for p in range(n_periods):
+        lp = layer_params(layers["pos0"], p)
+        a_out, _, _ = attention_decode_block(
+            rms_norm(x, lp["ln1"]), lp["attn"], cfg.attention, cfg.n_heads,
+            cfg.n_kv_heads, cfg.hd, cache["k"][p], cache["v"][p], cache_len,
+            window=cfg.attention.sliding_window)
+        x = _ffn(x + a_out, lp, moe_cfg)
+        for pos in range(1, period):
+            lp = layer_params(layers[f"pos{pos}"], p)
+            state = {"h": cache["mamba_h"][p, pos - 1],
+                     "conv": cache["mamba_conv"][p, pos - 1]}
+            m_out, new = mam.mamba_decode_step(rms_norm(x, lp["ln1"]), state,
+                                               lp["mamba"], cfg.mamba)
+            _write(state.values(), (new["h"], new["conv"]))
+            x = _ffn(x + m_out, lp, moe_cfg)
+    return x
 
 
 def _decode_moe(cfg: ModelConfig):

@@ -164,7 +164,7 @@ class CheckpointManager:
         return max(steps) if steps else None
 
     def restore(self, step: int, like: dict, tag: str = "ckpt", *,
-                device="cpu") -> dict:
+                device="cuda") -> dict:
         """Checkpoint ``step`` in the structure of ``like`` (tensors,
         meta tensors included, or anything with ``shape`` and
         ``dtype``), its tensors made on ``device``. Raises ``IOError``
@@ -194,7 +194,7 @@ class CheckpointManager:
         return _rebuild(like, leaves)
 
     def restore_latest(self, like: dict, tag: str = "ckpt", *,
-                       device="cpu") -> tuple[int, dict] | None:
+                       device="cuda") -> tuple[int, dict] | None:
         """The newest checkpoint of ``tag`` or of an emergency save (the
         later of the two; the emergency one when both have the step)
         whose file passes its digest, as ``(step, state)``; ``None``

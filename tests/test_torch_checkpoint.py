@@ -87,7 +87,7 @@ def test_round_trip(tmp_path, dtype):
              "empty": (), "none": None}
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(4, state)
-    step, got = mgr.restore_latest(state)
+    step, got = mgr.restore_latest(state, device="cpu")
     assert step == 4 and got["none"] is None and got["empty"] == ()
     for (p, t), (q, u) in zip(_flatten(state), _flatten(got)):
         assert p == q and u.dtype == t.dtype and u.shape == t.shape
@@ -111,7 +111,7 @@ def test_interrupted_saves_and_a_corrupt_newest_are_skipped(tmp_path):
     # a manifest torn mid-write is no checkpoint
     (tmp_path / "ckpt_step0000000008_shard0.manifest.json").write_text('{"st')
     assert mgr.latest_step() == 4
-    step, got = mgr.restore_latest(x)
+    step, got = mgr.restore_latest(x, device="cpu")
     assert step == 4 and torch.equal(got["w"], x["w"] * 2)
     # the newest file corrupted: its digest fails, the older one restores
     npz = tmp_path / "ckpt_step0000000004_shard0.npz"
@@ -119,8 +119,8 @@ def test_interrupted_saves_and_a_corrupt_newest_are_skipped(tmp_path):
     raw[-100] ^= 0xFF
     npz.write_bytes(bytes(raw))
     with pytest.raises(IOError):
-        mgr.restore(4, x)
-    step, got = mgr.restore_latest(x)
+        mgr.restore(4, x, device="cpu")
+    step, got = mgr.restore_latest(x, device="cpu")
     assert step == 2 and torch.equal(got["w"], x["w"])
 
 
@@ -141,7 +141,7 @@ def test_retention_keeps_the_last_and_never_an_emergency(tmp_path):
     assert mgr.latest_step("emergency") == 1
     # the newer of the two tags restores; at one step, the emergency one
     mgr.emergency(5, {"w": torch.ones(2)})
-    step, got = mgr.restore_latest(x)
+    step, got = mgr.restore_latest(x, device="cpu")
     assert step == 5 and torch.equal(got["w"], torch.ones(2))
 
 
@@ -151,7 +151,7 @@ def test_restore_checks_structure_shape_and_dtype(tmp_path):
     for like in ({"v": torch.zeros(2, 3)}, {"w": torch.zeros(3, 2)},
                  {"w": torch.zeros(2, 3, dtype=torch.bfloat16)}):
         with pytest.raises(ValueError):
-            mgr.restore(1, like)
+            mgr.restore(1, like, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -167,7 +167,7 @@ def test_jax_checkpoint_restores_in_the_port_and_steps_alike(tmp_path):
         1, {"params": jp, "opt_state": js})
     step_fn, opt = make_train_step(tcfg, TrainPolicy())
     step, state = CheckpointManager(str(tmp_path / "jax")).restore_latest(
-        _like(tcfg, opt))
+        _like(tcfg, opt), device="cpu")
     assert step == 1
     _equal_bytes(state, {"params": jp, "opt_state": js})
     batch = ds.batch(1)
@@ -198,7 +198,7 @@ def test_bf16_checkpoints_cross_the_packages_byte_for_byte(tmp_path):
                                                  "opt_state": js})
     opt = make_train_step(tcfg, TrainPolicy())[1]
     step, state = CheckpointManager(str(tmp_path)).restore_latest(
-        _like(tcfg, opt))
+        _like(tcfg, opt), device="cpu")
     assert step == 3
     _equal_bytes(state, {"params": jp, "opt_state": js})
     CheckpointManager(str(tmp_path)).save(4, state)

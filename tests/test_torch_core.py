@@ -117,3 +117,30 @@ def test_columnar_blocks_json_round_trips():
 
 def test_schema_version_is_shared():
     assert tev.TRACE_SCHEMA_VERSION == jev.TRACE_SCHEMA_VERSION == 5
+
+
+@pytest.mark.parametrize("policy,reserved_after", [
+    ("CUDA_CACHING", 52), ("CUDA_CACHING_TORCH", 50)])
+def test_a_refused_grant_reclaims_as_the_policy_says(policy, reserved_after):
+    # 72 MiB cached (40 + 30 large, 2 small) of 100 MiB; a 50 MiB
+    # request is refused. The JAX package's ladder frees large segments,
+    # largest first, until the request fits, and keeps the small one;
+    # torch with its default settings frees every cached segment
+    MiB = 1 << 20
+    pol = getattr(talloc, policy)
+    sim = talloc.CachingAllocatorSim(pol, talloc.DeviceAllocatorSim(
+        100 * MiB, pol.device_page))
+    handles = [sim.malloc(40 * MiB), sim.malloc(30 * MiB), sim.malloc(1024)]
+    for h in handles:
+        sim.free(h)
+    assert sim.reserved == 72 * MiB
+    sim.malloc(50 * MiB)
+    assert sim.reserved == reserved_after * MiB
+
+
+def test_the_ports_preset_replays_as_torch_does():
+    from repro_torch.core.estimator import XMemEstimator
+    assert XMemEstimator.for_torch_gpu().allocator_policy \
+        is talloc.CUDA_CACHING_TORCH
+    assert dataclasses.replace(talloc.CUDA_CACHING_TORCH, reclaim_all=False,
+                               name="cuda_caching") == talloc.CUDA_CACHING

@@ -388,8 +388,3 @@ def test_launchers_on_the_cpu(arch, capsys):
               if line.startswith("step ")]
     assert len(losses) == 3 and all(math.isfinite(x) for x in losses)
 
-
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-1.3b"])
-def test_recurrent_families_still_raise_naming_the_next_slice(arch):
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        TM.init_cache(treg.get_smoke(arch), 1, 8, device="meta")

@@ -72,7 +72,8 @@ def test_configs_match(arch):
                 assert str(ts[key].dtype) == f"torch.{js[key].dtype}"
 
 
-@pytest.mark.parametrize("arch", ["qwen3-32b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ["qwen3-32b", "gemma3-4b",
+                                  "jamba-1.5-large-398b", "xlstm-1.3b"])
 def test_abstract_cache_matches(arch):
     shape = SHAPES_BY_NAME["train_4k"]
     jc = jreg.abstract_cache(jreg.get_smoke(arch), shape, batch_override=2)
@@ -204,19 +205,6 @@ def test_convert_rejects_a_mismatched_tree():
                                    jax.random.key(0)))
     with pytest.raises(ValueError):
         convert.params_from_numpy(tree, tcfg, device="cpu")
-
-
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-1.5-large-398b"])
-@pytest.mark.parametrize("entry", ["abstract_params", "embed_inputs"])
-def test_unported_families_raise(arch, entry):
-    # hybrid and ssm; the VLM and audio families are ported
-    # (tests/test_torch_families.py)
-    cfg = treg.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        if entry == "abstract_params":
-            TM.abstract_params(cfg)
-        else:
-            TM.embed_inputs({}, {}, cfg)
 
 
 def test_init_params_seeded_and_in_dtype():
