@@ -6,7 +6,7 @@
 Phases, each printing one JSON line; any failure raises and exits
 non-zero:
 
-0. the four training jobs of phases 9-12 start at once, each in a
+0. the training jobs of phases 9-14 start at once, each in a
    process of its own that traces its gate's first two candidates on
    the CPU (no CUDA call) while this process uses the card, on the
    other half of the CPU cores (``cpus``), then waits for its turn on
@@ -60,8 +60,9 @@ non-zero:
    ``ssm_recurrent_parity``: one mLSTM and one sLSTM block at full
    width in f32 on the card, the chunked forms against the one-step
    decode recurrence;
-9. train   — in a child process of its own (``--train dense``), as a
-   training job runs: qwen3-32b at full width, depth cut to 4 layers,
+9. train   — in a child process of its own (``--train dense ROWS``,
+   which writes its baselines' row to the file ROWS), as a training job
+   runs: qwen3-32b at full width, depth cut to 4 layers,
    sequences of 4096: the xMem training gate (``pick_train_batch`` over
    batches 8, 4, 2, 1, traced on the CPU; ``train_gate``), then 3 AdamW
    steps on the card inside the training measurement (``train``:
@@ -69,7 +70,13 @@ non-zero:
    ``max_memory_allocated``, requests and segments, and the card's own
    request stream replayed through the allocator simulation), and the
    window's allocator requests set against the trace's
-   (``train_requests``);
+   (``train_requests``); then the paper's baselines for that job
+   (``dense_baselines``): TensorSum and DNNMem from the
+   forward+backward trace the gate cached for the admitted batch, and
+   DirectProbe's two 2-step runs on the card at a quarter and a half of
+   the batch, each beside the measured reserved peak;
+9a. dense_sgd_train — the same job with SGD (``--train dense_sgd``):
+   the paper's optimizer axis, where DNNMem's estimate stays put;
 10. moe_train — the same in a child of its own (``--train moe``) for
    phi3.5-moe at full width, sequences of 4096, depth cut to 3 layers
    (``moe_train_gate``, ``moe_train``, ``moe_train_requests``);
@@ -83,11 +90,17 @@ non-zero:
    attention kernel: they train through the chunked attention, as the
    JAX package does;
 13. ssm_train — the same for xlstm-1.3b at full width, depth cut to
-   whole periods (``--train ssm``);
+   whole periods (``--train ssm``), with no DirectProbe (the reference
+   probes the transformer families only);
 14. hybrid_train_gate — the training gate alone for the jamba cut
    (``--train hybrid``, batch 1): traced on the CPU, replayed at the
    card's capacity, where it must reject; the estimate without a
    capacity beside it. Nothing is allocated.
+15. baselines — the paper's comparison: SchedTune fitted on the dense
+   and moe families' measured peaks (each job's truth and its probes),
+   then xMem and the four baselines against every job's measured
+   reserved peak: MRE, PEF, MCP and mean runtime per estimator, each
+   model's quadrant, xMem's improvement over the best baseline.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero with no result when no
@@ -126,8 +139,9 @@ HYBRID_ARCH = "jamba-1.5-large-398b"
 HYBRID_PERIOD = 2
 # xlstm-1.3b serving depth, in whole periods of 8: one prefill estimate
 # at 48 layers took 58.0 and 81.6 s of the chip machine's CPU at seq 2048
-# in two runs (PERF.md section 4), over the 60 s allowed in the second
-SSM_SERVING_LAYERS = 32
+# in two runs (PERF.md section 4), over the 60 s allowed in the second;
+# 24 rather than 32 layers keeps the whole run well inside its limit
+SSM_SERVING_LAYERS = 24
 # serving paths: arch -> (B, H, Hkv, S, d) of its prefill attention, and
 # the kernels held against the plain version at that shape
 SERVING_SHAPES = {"qwen3-32b": ((8, 64, 8, PROMPT_LEN, 128), ("sm90", "simt")),
@@ -158,13 +172,27 @@ PLAIN_BATCH = 8
 # lower. One musicgen estimate at 48 layers takes about 180 s of CPU
 # (PERF.md section 4), over the 60 s allowed, so it trains 24. xLSTM's
 # least depth, one period of 8, already takes about 250 s (its sLSTM's
-# 4096 steps, three times forward and once backward under the trace)
+# 4096 steps, three times forward and once backward under the trace);
+# its gate starts at 16, which it admitted after rejecting 32 (PERF.md)
 TRAIN_JOBS = {"dense": ("qwen3-32b", 4, (8, 4, 2, 1)),
+              "dense_sgd": ("qwen3-32b", 4, (8, 4, 2, 1)),
               "moe": (MOE_ARCH, 3, (8, 4, 2, 1)),
               "vlm": (VLM_ARCH, 24, (16, 8, 4, 2, 1)),
               "audio": (AUDIO_ARCH, 24, (64, 32, 16, 8, 4, 2, 1)),
-              "ssm": (SSM_ARCH, 8, (32, 16, 8, 4, 2, 1)),
+              "ssm": (SSM_ARCH, 8, (16, 8, 4, 2, 1)),
               "hybrid": (HYBRID_ARCH, HYBRID_PERIOD, (1,))}
+# each job's optimizer (default AdamW): dense_sgd is the paper's
+# optimizer axis, on which DNNMem's estimate cannot move
+OPTIMIZERS = {"dense_sgd": "sgd"}
+# optimizer states a parameter has, SchedTune's feature (the table of
+# the reference's benchmark, benchmarks/common.py:build_job)
+OPTIMIZER_STATES = {"sgd": 0, "adamw": 2}
+# the families DirectProbe probes: the transformer families, as in the
+# reference's benchmark (LLMem supports no other)
+PROBED_FAMILIES = ("dense", "moe", "vlm", "audio")
+# SchedTune's history: the measured peaks of these families' jobs; the
+# other families are its cold start (benchmarks/common.py:fit_schedtune)
+SCHEDTUNE_FAMILIES = ("dense", "moe")
 # jobs whose gate must reject every candidate: they allocate nothing
 GATE_ONLY = ("hybrid",)
 # jobs whose measured window records no allocator history: xLSTM's sLSTM
@@ -962,7 +990,10 @@ def phase_attention_layer() -> None:
 def phase_profile(cfg, params, batch: int, prefix: str = "",
                   prompt_len: int = PROMPT_LEN) -> None:
     """Device time of one warm prefill at the admitted batch, by kernel,
-    from ``torch.profiler``; busy share = kernel time / wall time."""
+    from ``torch.profiler``; busy share = kernel time / wall time. Only
+    the device's activity is recorded: xlstm's prefill runs hundreds of
+    thousands of host ops, whose records cost the profiler more than
+    the prefill itself."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve as srv
@@ -972,8 +1003,7 @@ def phase_profile(cfg, params, batch: int, prefix: str = "",
     step = make_prefill_step(cfg)
     step(params, prompt)                       # warm the allocator
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(params, prompt)
         torch.cuda.synchronize()
@@ -983,6 +1013,8 @@ def phase_profile(cfg, params, batch: int, prefix: str = "",
         if str(e.device_type).endswith("CUDA"):
             kernels[e.key] = (e.self_device_time_total / 1e3, e.count)
     device_ms = sum(ms for ms, _ in kernels.values())
+    if not device_ms > 0:
+        raise AssertionError(f"{prefix}profile: no device time recorded")
 
     def bucket(name):
         low = name.lower()
@@ -1003,13 +1035,45 @@ def phase_profile(cfg, params, batch: int, prefix: str = "",
               for k, (ms, n) in top], memory=device_memory())
 
 
-def phase_train(job: str) -> None:
+def train_policy(job: str):
+    """``job``'s policy: its optimizer, clip_norm 1.0, 1 microbatch."""
+    from repro_torch.train import TrainPolicy
+    return TrainPolicy(optimizer=OPTIMIZERS.get(job, "adamw"))
+
+
+def job_spec(job: str, batch: int):
+    """The ``JobSpec`` of training job ``job`` at ``batch``: the hooks,
+    abstract parameters and input specs its gate estimates, and the meta
+    SchedTune's features read."""
+    from repro_torch.configs.base import smoke_shape
+    from repro_torch.configs.registry import input_specs
+    from repro_torch.core.baselines import JobSpec
+    from repro_torch.models import model as M
+    from repro_torch.train import make_estimator_hooks
+
+    arch, n_layers, _ = TRAIN_JOBS[job]
+    cfg = path_config(arch, n_layers)
+    policy = train_policy(job)
+    fwd_bwd, update, opt_init = make_estimator_hooks(cfg, policy)
+    return JobSpec(job, fwd_bwd, M.abstract_params(cfg),
+                   input_specs(cfg, smoke_shape(TRAIN_SEQ, batch)), update,
+                   opt_init, meta={
+                       "family": cfg.family, "optimizer": policy.optimizer,
+                       "batch_size": batch, "seq_len": TRAIN_SEQ,
+                       "d_model": cfg.d_model, "n_layers": cfg.n_layers,
+                       "optimizer_states": OPTIMIZER_STATES[
+                           policy.optimizer]})
+
+
+def phase_train(job: str, rows_path: str) -> None:
     """The training path of ``TRAIN_JOBS[job]``, in a process of its own
     as a training job is: the gate's first ``TRACED_AHEAD`` candidates
     traced on the CPU before any CUDA call, then, once a line on stdin
     says it is this job's turn on the card, the gate at the card's
-    capacity (the traces from the cache) and the steps on the card. Its
-    phases' names start with ``<job>_`` except for the dense job."""
+    capacity (the traces from the cache), the steps on the card, and
+    the baselines (``phase_baselines``, whose row goes to
+    ``rows_path``). Its phases' names start with ``<job>_`` except for
+    the dense job's."""
     import math
 
     import torch
@@ -1021,21 +1085,23 @@ def phase_train(job: str) -> None:
     from repro_torch.launch import serve as srv
     from repro_torch.launch import train as trn
     from repro_torch.models import model as M
-    from repro_torch.train import TrainPolicy, make_estimator_hooks
+    from repro_torch.train import make_estimator_hooks
 
     prefix = "" if job == "dense" else f"{job}_"
     arch, n_layers, candidates = TRAIN_JOBS[job]
     cfg = path_config(arch, n_layers)
-    policy = TrainPolicy()          # AdamW, clip_norm 1.0, 1 microbatch
+    policy = train_policy(job)
     est = XMemEstimator.for_torch_gpu()
-    trace_s = []
+    trace_s, fwd_s = {}, {}
     for b in candidates[:TRACED_AHEAD]:
-        t0 = time.perf_counter()
         fwd_bwd, update, opt_init = make_estimator_hooks(cfg, policy)
-        est.trace_phases(fwd_bwd, M.abstract_params(cfg),
-                         input_specs(cfg, smoke_shape(TRAIN_SEQ, b)),
-                         update, opt_init)
-        trace_s.append(time.perf_counter() - t0)
+        params, specs = M.abstract_params(cfg), input_specs(
+            cfg, smoke_shape(TRAIN_SEQ, b))
+        t0 = time.perf_counter()
+        est.trace_phases(fwd_bwd, params, specs)    # the forward+backward
+        fwd_s[b] = time.perf_counter() - t0
+        est.trace_phases(fwd_bwd, params, specs, update, opt_init)
+        trace_s[b] = time.perf_counter() - t0
     if sys.stdin.readline().strip() != "go":
         raise AssertionError(f"training job {job}: no turn on the card")
     memory = device_memory()
@@ -1046,7 +1112,7 @@ def phase_train(job: str) -> None:
          seq_len=TRAIN_SEQ, optimizer=policy.optimizer,
          clip_norm=policy.clip_norm, microbatches=policy.microbatches,
          capacity=capacity, seconds=gate["seconds"],
-         trace_seconds={str(b): x for b, x in zip(candidates, trace_s)},
+         trace_seconds={str(b): x for b, x in trace_s.items()},
          trace_cache=gate["trace_cache"], candidates=gate["candidates"],
          batch=batch, memory=memory, **(
              gate_only_estimate(cfg, policy, candidates[0], est)
@@ -1059,6 +1125,9 @@ def phase_train(job: str) -> None:
     if batch is None:
         raise AssertionError(f"no training batch fits {cfg.name} at "
                              f"{n_layers} layers")
+    if batch not in trace_s:
+        raise AssertionError(f"{job}: batch {batch} was not traced ahead, "
+                             f"so no estimate has a trace time")
     rep = gate["report"]
     shape = smoke_shape(TRAIN_SEQ, batch)
     params = M.init_params(cfg, 0, device="cuda")
@@ -1106,6 +1175,76 @@ def phase_train(job: str) -> None:
     if job == CKPT_JOB:
         phase_checkpoint({"params": params, "opt_state": run.opt_state},
                          run.step, prefix)
+    truth = got.reserved
+    # DirectProbe's runs start from a card that holds none of this run's
+    # tensors: parameters, optimizer state, the window's record
+    del params, run, got
+    torch.cuda.empty_cache()
+    phase_baselines(job_spec(job, batch), cfg, capacity, truth, rep, est,
+                    trace_s[batch] + rep.wall_time_s, fwd_s, rows_path)
+
+
+def phase_baselines(spec, cfg, capacity: int, truth: int, rep, est,
+                    xmem_s: float, fwd_s: dict, rows_path: str) -> None:
+    """The paper's baselines for a training job, ``spec`` at the batch
+    its gate admitted (``rep``, xMem's estimate): TensorSum and DNNMem from
+    the forward+backward trace ``est`` cached for that batch (their
+    runtimes count the trace's seconds, ``fwd_s`` by batch, as xMem's
+    ``xmem_s`` does), then, for the transformer families, DirectProbe's
+    two runs on the card, each against ``truth``, the reserved peak the
+    training window read. A probe at a batch whose trace is cached too
+    gets DNNMem's estimate there beside its peak (``dnnmem_at_probes``):
+    a second measured point, at no trace's cost. The row is emitted and
+    written to ``rows_path`` for the parent's comparison. A baseline
+    that raises fails the job, except DirectProbe running out of
+    memory, which is its own outcome."""
+    from repro_torch.core.baselines import (DirectProbeEstimator,
+                                            DNNMemEstimator, ProbeOOMError,
+                                            TensorSumEstimator)
+    job, batch = spec.name, spec.meta["batch_size"]
+    hits = est.trace_cache.hits
+    fwd, _, _ = est.trace_phases(spec.fwd_bwd_fn, spec.params, spec.batch)
+    if est.trace_cache.hits != hits + 1:
+        raise AssertionError(f"{job}: the baselines' trace was not the "
+                             f"cached one")
+    found = {"xmem": (rep.peak_bytes, xmem_s)}
+    tensorsum, dnnmem = TensorSumEstimator(), DNNMemEstimator()
+    found["tensorsum"] = (tensorsum.estimate(spec, trace=fwd.trace),
+                          tensorsum.last_runtime_s + fwd_s[batch])
+    found["dnnmem"] = (dnnmem.estimate(spec, capacity, trace=fwd.trace),
+                       dnnmem.last_runtime_s + fwd_s[batch])
+    oom_prediction = dnnmem.last_oom_prediction
+    probes = probe_oom = None
+    dnnmem_at_probes = {}
+    if cfg.family in PROBED_FAMILIES:
+        probe = DirectProbeEstimator(capacity=capacity)
+        try:
+            found["directprobe"] = (probe.estimate(spec),
+                                    probe.last_runtime_s)
+        except ProbeOOMError as e:
+            probe_oom = str(e)
+        probes = probe.last_probes
+        for b, peak in probes:
+            if b in fwd_s:
+                at = job_spec(job, b)
+                fwd_b, _, _ = est.trace_phases(at.fwd_bwd_fn, at.params,
+                                               at.batch)
+                dnnmem_at_probes[b] = {
+                    "estimate": dnnmem.estimate(at, trace=fwd_b.trace),
+                    "probe_peak": peak}
+    row = {"job": job, "config": cfg.name, "family": cfg.family,
+           "n_layers": cfg.n_layers, "optimizer": spec.meta["optimizer"],
+           "batch": batch, "capacity": capacity,
+           "measured_reserved": truth, "trace_seconds": fwd_s[batch],
+           "estimators": {name: {"estimate": value,
+                                 "rel_err": (value - truth) / truth,
+                                 "runtime_s": seconds}
+                          for name, (value, seconds) in found.items()},
+           "dnnmem_oom_prediction": oom_prediction,
+           "probes": probes, "probe_oom": probe_oom,
+           "dnnmem_at_probes": dnnmem_at_probes}
+    emit(f"{job}_baselines", **row, memory=device_memory())
+    Path(rows_path).write_text(json.dumps(row))
 
 
 def gate_only_estimate(cfg, policy, batch: int, est) -> dict:
@@ -1215,15 +1354,69 @@ def emit_train_requests(card_allocs, traced, prefix: str = "") -> None:
          trace_only_top=top(trace_only, False))
 
 
+def phase_comparison(rows: dict, info: dict) -> None:
+    """The paper's comparison on the card: SchedTune fitted on the
+    measured (``JobSpec``, reserved peak) pairs of the dense and moe
+    families' jobs (each job's truth and its probes), then every
+    estimator's ``RunRecord`` of every job against the truth its window
+    read, at the capacity its gate read: MRE, PEF, MCP and mean runtime
+    per estimator (``core/metrics.py``), each model's quadrant, and
+    xMem's improvement over the best baseline. ``info``: the
+    ``device`` phase's."""
+    from repro_torch.core import metrics as mt
+    from repro_torch.core.baselines import SchedTuneEstimator
+
+    history, peaks = [], []
+    for job, row in rows.items():
+        if row["family"] in SCHEDTUNE_FAMILIES:
+            for batch, peak in [(row["batch"], row["measured_reserved"]),
+                                *(row["probes"] or ())]:
+                history.append(job_spec(job, batch))
+                peaks.append(peak)
+    schedtune = SchedTuneEstimator()
+    t0 = time.perf_counter()
+    schedtune.fit(history, peaks)
+    fit_s = time.perf_counter() - t0
+    records = []
+    for job, row in rows.items():
+        found = {name: (e["estimate"], e["runtime_s"])
+                 for name, e in row["estimators"].items()}
+        found["schedtune"] = (schedtune.estimate(job_spec(job, row["batch"])),
+                              schedtune.last_runtime_s)
+        records += [mt.RunRecord(job, row["family"], name, info["name"],
+                                 row["capacity"], value,
+                                 row["measured_reserved"], seconds)
+                    for name, (value, seconds) in found.items()]
+    summary = {name: {"n": len(recs), "mre": mt.mre(recs),
+                      "pef": mt.pef(recs), "mcp": mt.mcp(recs),
+                      "mean_runtime": mt.mean_runtime(recs),
+                      "quadrant": {r.config: mt.quadrant([r]) for r in recs}}
+               for name, recs in mt.group_by(records, "estimator").items()}
+    emit("baselines", nvidia_smi=info["nvidia_smi"],
+         schedtune_history=len(history),
+         schedtune_fit_s=fit_s, estimators=summary,
+         improvement_vs_best_baseline=mt.improvement_vs_best_baseline(
+             records),
+         probe_oom={job: row["probe_oom"] for job, row in rows.items()
+                    if row["probe_oom"]},
+         records=[{"job": r.config, "estimator": r.estimator,
+                   "estimate": r.estimate, "truth": r.truth,
+                   "rel_err": (r.estimate - r.truth) / r.truth,
+                   "runtime_s": r.runtime_s, "c2": r.c2} for r in records])
+
+
 def main() -> int:
+    import shutil
+    import tempfile
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401 — fails outside a checkout
-    if sys.argv[1:2] == ["--train"] and len(sys.argv) == 3:
-        phase_train(sys.argv[2])
+    if sys.argv[1:2] == ["--train"] and len(sys.argv) == 4:
+        phase_train(sys.argv[2], sys.argv[3])
         return 0
     # each training job gets a process of its own, as it would: a fresh
     # allocator whose first iteration makes cuBLAS's workspaces. They
@@ -1231,12 +1424,15 @@ def main() -> int:
     # serves; each takes the card in turn at the end. The jobs get half
     # the cores and this process the other half, so that the serving
     # paths' host-side numbers are not taken under the tracing's load
+    # (each writes its baselines' row to a file of ``rows_dir``)
     cores = sorted(os.sched_getaffinity(0))
     mine, theirs = cores[:len(cores) // 2], cores[len(cores) // 2:]
+    rows_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_rows_"))
     jobs = {}
     for job in TRAIN_JOBS:
         jobs[job] = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--train", job],
+            [sys.executable, str(Path(__file__).resolve()), "--train", job,
+             str(rows_dir / f"{job}.json")],
             stdin=subprocess.PIPE, text=True)
         if mine:
             os.sched_setaffinity(jobs[job].pid, theirs)
@@ -1270,11 +1466,16 @@ def main() -> int:
             if child.wait(timeout=600) != 0:
                 raise AssertionError(f"training job {job} failed: exit "
                                      f"{child.returncode}")
+        phase_comparison({job: json.loads((rows_dir / f"{job}.json")
+                                          .read_text())
+                          for job in TRAIN_JOBS if job not in GATE_ONLY},
+                         info)
     finally:
         for child in jobs.values():
             if child.poll() is None:
                 child.kill()
                 child.wait()
+        shutil.rmtree(rows_dir, ignore_errors=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

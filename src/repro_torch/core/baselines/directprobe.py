@@ -1,4 +1,4 @@
-"""Ground truth on the card: the peak memory a step really takes.
+"""Ground truth on the card, and the LLMem-style probe (paper §5.3).
 
 The JAX package reads XLA's compiled memory analysis. On the port's own
 stack the truth is the CUDA caching allocator's: run the step once on
@@ -15,6 +15,19 @@ simulated allocator assumes its defaults.
 ``measured_training`` measures ``steps`` training steps from resident
 parameters, with the optimizer state made inside the window at the
 first update, as the estimator's N-iteration composition places it.
+
+``DirectProbeEstimator`` is the reference's direct-measurement baseline
+on the card: it runs the job itself at two reduced batches
+(``measured_training`` over ``PROBE_STEPS`` steps each, parameters and
+batches made from a seed) and extrapolates linearly in batch,
+
+    peak(B) ≈ fixed + slope * B
+
+This is the methodology family that violates the zero-target-overhead
+constraint: it runs the job twice on the very device whose memory the
+estimate should spare, and its runtime reflects that. It fails outright
+when a probe runs out of device memory or exceeds the capacity (paper
+§5.3 limitation (i)/(ii)), which it reports as ``ProbeOOMError``.
 """
 from __future__ import annotations
 
@@ -24,6 +37,13 @@ import time
 from typing import Any, Callable
 
 import torch
+from torch.utils import _pytree as pytree
+
+from .common import JobSpec
+
+#: training steps each probe runs: the second is the first whose forward
+#: runs with the optimizer state resident, as in every later step
+PROBE_STEPS = 2
 
 
 @dataclasses.dataclass
@@ -142,3 +162,111 @@ def _measure(run: Callable, device, history: bool,
                         n_alloc_retries=after["num_alloc_retries"]
                         - before["num_alloc_retries"],
                         allocs=allocs, events=events, out=out)
+
+
+class ProbeOOMError(RuntimeError):
+    """A probe ran out of device memory, or its peak exceeds the
+    capacity: the direct-measurement baseline has no estimate."""
+
+
+def _scale_batch(tree: Any, factor: int) -> Any:
+    """``tree``'s tensors with the leading dimension divided by
+    ``factor`` (at least 1), as ``meta`` tensors; scalars unchanged."""
+    def scale(leaf):
+        if not isinstance(leaf, torch.Tensor) or not leaf.shape:
+            return leaf
+        b = max(leaf.shape[0] // factor, 1)
+        return torch.empty((b,) + tuple(leaf.shape[1:]), dtype=leaf.dtype,
+                           device="meta")
+    return pytree.tree_map(scale, tree)
+
+
+def _materialize(tree: Any, device, gen: torch.Generator) -> Any:
+    """Tensors of ``tree``'s shapes and dtypes on ``device``: floating
+    ones drawn from N(0, 0.02) by ``gen``, the others zeros (token ids
+    any vocabulary takes). A step's memory does not depend on the
+    values: no op of the models has a shape that does."""
+    def make(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if t.is_floating_point():
+            return torch.empty(t.shape, dtype=t.dtype,
+                               device=device).normal_(0.0, 0.02,
+                                                      generator=gen)
+        return torch.zeros(t.shape, dtype=t.dtype, device=device)
+    return pytree.tree_map(make, tree)
+
+
+def probe_peak(job: JobSpec, batch: Any) -> int:
+    """Reserved peak of ``PROBE_STEPS`` training steps of ``job`` at
+    ``batch`` (a pytree of ``meta`` tensors) on the card: the parameters,
+    and a batch for each step, made on the card from a seed, then
+    ``measured_training`` from the resident parameters. The cache is
+    released before the parameters are made: made into the segments an
+    earlier run left cached, they would keep parts of those segments
+    reserved through the probe's window."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("a probe runs the job on a CUDA device")
+    device = torch.device("cuda")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = _materialize(job.params, device, gen)
+    return measured_training(
+        job.fwd_bwd_fn, job.update_fn, job.opt_init_fn, params,
+        lambda step: _materialize(batch, device, gen), PROBE_STEPS,
+        device).reserved
+
+
+class DirectProbeEstimator:
+    """LLMem-style estimate: probes at ``batch // f`` for each ``f`` of
+    ``probe_fractions``, extrapolated to the full batch. ``measure(job,
+    batch) -> bytes`` runs one probe (default ``probe_peak``, on the
+    card); ``last_probes`` holds the (batch, peak) of each probe run."""
+
+    name = "directprobe"
+
+    def __init__(self, probe_fractions=(4, 2), capacity: int | None = None,
+                 measure: Callable[[JobSpec, Any], int] | None = None):
+        self.probe_fractions = probe_fractions
+        self.capacity = capacity
+        self.measure = probe_peak if measure is None else measure
+        self.last_runtime_s = 0.0
+        self.last_probes: list[tuple[int, int]] = []
+
+    def _probe(self, job: JobSpec, batch: Any, n: int) -> int:
+        try:
+            peak = self.measure(job, batch)
+        except torch.OutOfMemoryError as e:
+            # raised outside the handler, so that the traceback, and the
+            # probe's tensors its frames hold, are released first
+            reason = str(e).splitlines()[0] if str(e) else "out of memory"
+        else:
+            self.last_probes.append((n, peak))
+            return peak
+        raise ProbeOOMError(f"the probe at batch {n} ran out of device "
+                            f"memory: {reason}")
+
+    def estimate(self, job: JobSpec) -> int:
+        t0 = time.perf_counter()
+        self.last_probes = []
+        try:
+            return self._estimate(job)
+        finally:
+            self.last_runtime_s = time.perf_counter() - t0
+
+    def _estimate(self, job: JobSpec) -> int:
+        f_small, f_large = self.probe_fractions
+        b_small = _scale_batch(job.batch, f_small)
+        b_large = _scale_batch(job.batch, f_large)
+        n_full = max(pytree.tree_leaves(job.batch)[0].shape[0], 1)
+        n_small = max(n_full // f_small, 1)
+        n_large = max(n_full // f_large, 1)
+        p_small = self._probe(job, b_small, n_small)
+        if self.capacity is not None and p_small > self.capacity:
+            raise ProbeOOMError("probe itself exceeds device capacity")
+        if n_large == n_small:
+            return p_small
+        p_large = self._probe(job, b_large, n_large)
+        slope = (p_large - p_small) / (n_large - n_small)
+        fixed = p_small - slope * n_small
+        return int(fixed + slope * n_full)

@@ -287,3 +287,38 @@ def test_family_training_estimate_vs_measured_on_the_card(arch):
     assert len(got.out.losses) == est.iterations
     assert abs(rep.peak_tensor_bytes - got.allocated) / got.allocated < 0.01
     assert abs(rep.peak_bytes - got.reserved) / got.reserved < 0.10
+
+
+@pytest.mark.gpu
+def test_directprobe_vs_measured_training_on_the_card():
+    # qwen3-32b's full width, two layers, a 8192-token vocabulary, AdamW
+    # with clipping, batch 4 x 1024: DirectProbe's runs at batches 1 and
+    # 2 (2 steps each), extrapolated to 4, against 3 steps measured at 4,
+    # both printed. Held to the reference's own 25 %
+    # (tests/test_core_pipeline.py::TestBaselines). Run it in a pytest
+    # process of its own (-k directprobe), as a training job has one
+    _need_card()
+    from repro_torch.configs.base import smoke_shape
+    from repro_torch.core.baselines import DirectProbeEstimator, JobSpec
+    from repro_torch.core.baselines.directprobe import measured_training
+    from repro_torch.train import (SyntheticDataset, TrainPolicy,
+                                   make_estimator_hooks)
+    cfg = dataclasses.replace(treg.get_config("qwen3-32b"), n_layers=2,
+                              vocab=8192)
+    shape = smoke_shape(1024, 4)
+    fwd_bwd, update, opt_init = make_estimator_hooks(cfg, TrainPolicy())
+    probe = DirectProbeEstimator()
+    estimate = probe.estimate(JobSpec(
+        "qwen3-2l", fwd_bwd, TM.abstract_params(cfg),
+        treg.input_specs(cfg, shape), update, opt_init))
+    ds = SyntheticDataset(cfg, shape)
+    # the parameters made from a released cache, as a fresh job's are
+    torch.cuda.empty_cache()
+    got = measured_training(fwd_bwd, update, opt_init,
+                            TM.init_params(cfg, 0, device="cuda"),
+                            lambda step: ds.device_batch(step, "cuda"), 3)
+    print(f"directprobe {estimate} (probes {probe.last_probes}, "
+          f"{probe.last_runtime_s:.2f} s), measured reserved {got.reserved}, "
+          f"{(estimate - got.reserved) / got.reserved:+.4%}")
+    assert [b for b, _ in probe.last_probes] == [1, 2]
+    assert abs(estimate - got.reserved) / got.reserved < 0.25

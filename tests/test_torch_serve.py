@@ -117,15 +117,19 @@ print("N", sum(n.startswith("repro_torch") for n in sys.modules))
 print("HAVE", sorted(n for n in sys.modules if n.startswith("repro_torch.")))
 """
 
-# the training, MoE and VLM/audio slices' modules, which the walk above
-# must have imported
+# the training, MoE, VLM/audio and baselines slices' modules, which the
+# walk above must have imported
 _TRAINING_MODULES = (
     "repro_torch.core.analyzer", "repro_torch.core.cache",
     "repro_torch.core.metrics", "repro_torch.train.optimizer",
     "repro_torch.train.data", "repro_torch.train.train_step",
     "repro_torch.launch.train", "repro_torch.examples.quickstart",
     "repro_torch.models.moe", "repro_torch.train.checkpoint",
-    "repro_torch.train.elastic")
+    "repro_torch.train.elastic", "repro_torch.core.baselines.common",
+    "repro_torch.core.baselines.tensorsum",
+    "repro_torch.core.baselines.dnnmem",
+    "repro_torch.core.baselines.schedtune",
+    "repro_torch.core.baselines.directprobe")
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
