@@ -27,8 +27,11 @@ non-zero:
    estimate beside the
    measured peak, the card's allocator requests during one prefill
    aligned with the trace's (``requests``), the device time of one warm
-   prefill by kernel (``profile``), and the kernel path's logits against
-   the dense path's (``parity``);
+   prefill by kernel (``profile``), the kernel path's logits against
+   the dense path's (``parity``), and ``serving_sweep``: the
+   request-driven serving estimate over a knob grid (page size x
+   concurrency x KV dtype) from one decode trace, its monolithic
+   composition at the admitted batch beside the card's decode peak;
 5. moe_layer — one phi3.5-moe MoE layer at full width: the card's
    allocator requests (with the ATen function that made each) against
    the trace's, for the serving forward and for a training forward and
@@ -74,7 +77,15 @@ non-zero:
    (``dense_baselines``): TensorSum and DNNMem from the
    forward+backward trace the gate cached for the admitted batch, and
    DirectProbe's two 2-step runs on the card at a quarter and a half of
-   the batch, each beside the measured reserved peak;
+   the batch, each beside the measured reserved peak; then
+   ``dense_sweep``: the sweep service over batches 1-8 (its probes traced
+   ahead with the gate's, the other batches synthesized from the affine
+   trace model), the synthesized report at the gate's batch held to the
+   gate's real-trace report to the byte, and, when the sweep admits a
+   larger batch than the gate's candidates did, ``dense_sweep_train``:
+   that batch trained on the card against its estimate; and
+   ``dense_sweep_reject``: the smallest batch the sweep rejects above
+   the admitted ones, run on the card (does it run out of memory too?);
 9a. dense_sgd_train — the same job with SGD (``--train dense_sgd``):
    the paper's optimizer axis, where DNNMem's estimate stays put;
 10. moe_train — the same in a child of its own (``--train moe``) for
@@ -202,6 +213,18 @@ UNRECORDED = ("ssm",)
 TRAIN_SEQ = 4096            # TRAIN_4K's sequence length
 TRAIN_STEPS = 3             # the estimator composes 3 iterations
 TRACED_AHEAD = 2            # candidates a training job traces before its turn
+# the dense job's batch sweep, and the batches it traces before its turn
+# beside the gate's 8 and 4: the sweep's probes 1 and 5 (min and median
+# of the grid; 8 is its max), and 2, the probe that repairs batch 1,
+# whose trace differs from the others' (size-1 dims make some copies
+# no-ops: tests/test_torch_sweep.py)
+DENSE_SWEEP = tuple(range(1, 9))
+DENSE_SWEEP_AHEAD = (1, 5, 2)
+# the serving knob grid at the admitted batch b: page sizes, concurrency
+# as multiples of b, KV bytes per element
+SERVING_PAGES = (16, 64, 256)
+SERVING_CONCURRENCY = (0.5, 1, 2)
+SERVING_KV_BYTES = (1, 2)
 CKPT_JOB = "vlm"            # the job whose final state goes through a checkpoint
 # |flash - dense| / max|dense| on the batch-1 prefill logits, bf16 model:
 # both paths do f32 attention math from the same bf16 q/k/v and round
@@ -556,14 +579,17 @@ def serving_shape_rows(path: str, shape, kernels, rand, sdpa):
 def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
                   n_layers: int | None = N_LAYERS, max_len: int = MAX_LEN,
                   prompt_len: int = PROMPT_LEN, candidates=(8, 4, 2, 1),
-                  kernel_rows: bool = False) -> None:
+                  kernel_rows: bool = False,
+                  serving_sweep: bool = False) -> None:
     """The serving main path of ``arch`` at full width, ``n_layers``
     deep (``None``: the config's depth), prompts of ``prompt_len``
     positions into a cache of ``max_len``, the gate over
     ``candidates``; its phases' names start with ``prefix``. With
     ``kernel_rows`` the path's kernel is first held against the plain
     version at the admitted batch's prefill shape (``kernel`` phase),
-    and its rows join ``rows``."""
+    and its rows join ``rows``; with ``serving_sweep`` the served
+    decode is set beside the request-driven estimate's knob grid
+    (``phase_serving_sweep``)."""
     import torch
     from repro_torch.core.estimator import XMemEstimator
     from repro_torch.kernels import flash_attention as fa
@@ -686,6 +712,9 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
                RESERVED_TOL)
         within(f"{cfg.name} {name} allocated", got["rel_err_allocated"],
                SERVING_ALLOCATED_TOL)
+    if serving_sweep:
+        phase_serving_sweep(cfg, batch, max_len, prompt_len, capacity,
+                            res.peaks["decode"])
     del res
     torch.cuda.empty_cache()
     phase_requests(cfg, params, batch, prefix, max_len, prompt_len, est,
@@ -719,6 +748,74 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
          memory=device_memory())
     if not rel < LOGITS_REL_TOL:
         raise AssertionError(f"flash vs dense logits: rel {rel}")
+
+
+def phase_serving_sweep(cfg, batch: int, max_len: int, prompt_len: int,
+                        capacity: int, decode) -> None:
+    """The request-driven serving estimate of ``cfg`` at full width over
+    a knob grid (page size x concurrency x KV bytes), from one decode
+    trace (``SweepService.estimate_serving_sweep``): ``batch`` requests
+    of ``prompt_len`` prompt and ``DECODE_TOKENS`` decoded positions,
+    one arriving each tick. At ``max_concurrent = batch`` and 2-byte KV
+    the monolithic composition (parameters + the decode step's
+    transient + the whole cache) stands beside ``decode``, the card's
+    measured decode peak at ``batch``, and the step's transient beside
+    the card's (its live peak above the parameters and the cache): a
+    comparison, not a gate. Fails if the grid cost more than 2 traces."""
+    from repro_torch.core.estimator import XMemEstimator
+    from repro_torch.core.orchestrator import ServingKnobs
+    from repro_torch.core.sweep import SweepService
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import model as M
+
+    kv_tok, resident = srv.serving_cache_profile(cfg, max_len)
+    stream = srv.parse_mix(f"{prompt_len}:{DECODE_TOKENS}:{batch}").stream()
+    grid = [ServingKnobs(page_size=p, max_concurrent=max(int(batch * c), 1),
+                         kv_dtype_bytes=d)
+            for p in SERVING_PAGES for c in SERVING_CONCURRENCY
+            for d in SERVING_KV_BYTES]
+    cache = M.init_cache(cfg, batch, max_len, device="meta")
+    res = SweepService(XMemEstimator.for_torch_gpu()).estimate_serving_sweep(
+        srv.make_decode_fn(cfg), M.abstract_params(cfg), cache,
+        srv.decode_input(cfg, batch), stream=stream, knob_grid=grid,
+        kv_bytes_per_token=kv_tok, resident_bytes_per_request=resident,
+        capacity=capacity)
+    knobs = [{"page_size": k.page_size, "max_concurrent": k.max_concurrent,
+              "kv_dtype_bytes": k.kv_dtype_bytes,
+              "worst": e.worst_case_peak_bytes,
+              "steady": e.steady_state_peak_bytes,
+              "paged_peak": e.paged_kv_peak_bytes,
+              "paged_steady": e.paged_kv_steady_bytes,
+              "monolithic": e.monolithic_cache_bytes,
+              "step_transient": e.step_transient_bytes,
+              "ticks": e.breakdown["ticks"],
+              "evictions": e.breakdown["evictions"],
+              "fits": e.fits(capacity)} for k, e in res]
+    at = next(e for k, e in res
+              if k.max_concurrent == batch and k.kv_dtype_bytes == 2)
+    composed = (at.persistent_bytes + at.step_transient_bytes
+                + at.monolithic_cache_bytes)
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    card_transient = decode.allocated - at.persistent_bytes - cache_bytes
+    emit("serving_sweep", config=cfg.name, n_layers=cfg.n_layers,
+         batch=batch, requests=len(stream), prompt_len=prompt_len,
+         decode_tokens=DECODE_TOKENS, kv_bytes_per_token=kv_tok,
+         resident_bytes_per_request=resident, capacity=capacity,
+         knobs=knobs, trace_cache=res.stats["trace_cache"],
+         wall_s=res.stats["wall_s"],
+         card={"max_concurrent": batch, "kv_dtype_bytes": 2,
+               "persistent": at.persistent_bytes,
+               "step_transient": at.step_transient_bytes,
+               "monolithic_cache": at.monolithic_cache_bytes,
+               "cache_bytes": cache_bytes, "composed": composed,
+               "measured_decode_allocated": decode.allocated,
+               "rel_err": (composed - decode.allocated) / decode.allocated,
+               "card_decode_transient": card_transient,
+               "step_transient_bounds_card": (at.step_transient_bytes
+                                              >= card_transient)})
+    if len(grid) < 12 or res.stats["trace_cache"]["misses"] > 2:
+        raise AssertionError(f"serving sweep: {len(grid)} knobs cost "
+                             f"{res.stats['trace_cache']} traces")
 
 
 def phase_recurrent_parity(cfg, prefix: str) -> None:
@@ -1093,7 +1190,10 @@ def phase_train(job: str, rows_path: str) -> None:
     policy = train_policy(job)
     est = XMemEstimator.for_torch_gpu()
     trace_s, fwd_s = {}, {}
-    for b in candidates[:TRACED_AHEAD]:
+    ahead = list(candidates[:TRACED_AHEAD])
+    if job == "dense":
+        ahead += [b for b in DENSE_SWEEP_AHEAD if b not in ahead]
+    for b in ahead:
         fwd_bwd, update, opt_init = make_estimator_hooks(cfg, policy)
         params, specs = M.abstract_params(cfg), input_specs(
             cfg, smoke_shape(TRAIN_SEQ, b))
@@ -1180,12 +1280,16 @@ def phase_train(job: str, rows_path: str) -> None:
     # tensors: parameters, optimizer state, the window's record
     del params, run, got
     torch.cuda.empty_cache()
-    phase_baselines(job_spec(job, batch), cfg, capacity, truth, rep, est,
-                    trace_s[batch] + rep.wall_time_s, fwd_s, rows_path)
+    row = phase_baselines(job_spec(job, batch), cfg, capacity, truth, rep,
+                          est, trace_s[batch] + rep.wall_time_s, fwd_s,
+                          rows_path)
+    if job == "dense":
+        phase_dense_sweep(cfg, policy, est, capacity, gate, fwd_s,
+                          row["probes"] or ())
 
 
 def phase_baselines(spec, cfg, capacity: int, truth: int, rep, est,
-                    xmem_s: float, fwd_s: dict, rows_path: str) -> None:
+                    xmem_s: float, fwd_s: dict, rows_path: str) -> dict:
     """The paper's baselines for a training job, ``spec`` at the batch
     its gate admitted (``rep``, xMem's estimate): TensorSum and DNNMem from
     the forward+backward trace ``est`` cached for that batch (their
@@ -1194,8 +1298,8 @@ def phase_baselines(spec, cfg, capacity: int, truth: int, rep, est,
     two runs on the card, each against ``truth``, the reserved peak the
     training window read. A probe at a batch whose trace is cached too
     gets DNNMem's estimate there beside its peak (``dnnmem_at_probes``):
-    a second measured point, at no trace's cost. The row is emitted and
-    written to ``rows_path`` for the parent's comparison. A baseline
+    a second measured point, at no trace's cost. The row is emitted,
+    written to ``rows_path`` for the parent's comparison, and returned. A baseline
     that raises fails the job, except DirectProbe running out of
     memory, which is its own outcome."""
     from repro_torch.core.baselines import (DirectProbeEstimator,
@@ -1245,6 +1349,176 @@ def phase_baselines(spec, cfg, capacity: int, truth: int, rep, est,
            "dnnmem_at_probes": dnnmem_at_probes}
     emit(f"{job}_baselines", **row, memory=device_memory())
     Path(rows_path).write_text(json.dumps(row))
+    return row
+
+
+def phase_dense_sweep(cfg, policy, est, capacity: int, gate: dict,
+                      fwd_s: dict, probes) -> None:
+    """The sweep service over the dense job's ``DENSE_SWEEP`` batches at
+    ``capacity``, through one set of hooks and the job's estimator
+    ``est``, whose cache holds the probes' traces (made ahead, through
+    other but identical hooks: the key is their content). The report
+    the sweep synthesized at the gate's batch is held to the gate's
+    real-trace report to the byte (fails if not; the line says where
+    that batch's report came from). xMem's estimates at DirectProbe's
+    ``probes`` stand beside their peaks. Then the card: the largest
+    admitted batch when it is above the gate's (``dense_sweep_train``),
+    and the smallest rejected one above it (``dense_sweep_reject``)."""
+    from repro_torch.configs.base import smoke_shape
+    from repro_torch.configs.registry import input_specs
+    from repro_torch.core.sweep import SweepPoint, SweepService
+    from repro_torch.models import model as M
+    from repro_torch.train import make_estimator_hooks
+
+    fwd_bwd, update, opt_init = make_estimator_hooks(cfg, policy)
+    params = M.abstract_params(cfg)
+    res = SweepService(est).estimate_many([
+        SweepPoint(fwd_bwd, params, input_specs(cfg, smoke_shape(TRAIN_SEQ,
+                                                                 b)),
+                   update_fn=update, opt_init_fn=opt_init, capacity=capacity)
+        for b in DENSE_SWEEP])
+    reports = dict(zip(DENSE_SWEEP, res.reports))
+    sources = dict(zip(DENSE_SWEEP, res.sources))
+    fits = {b: not r.oom and r.peak_bytes <= capacity
+            for b, r in reports.items()}
+    gate_b, gate_rep = gate["batch"], gate["report"]
+    swept = reports[gate_b]
+    fields = {k: (getattr(swept, k), getattr(gate_rep, k)) for k in
+              ("peak_bytes", "peak_tensor_bytes", "persistent_bytes", "oom")}
+    fields["phase_peaks"] = (swept.breakdown["phase_peaks"],
+                             gate_rep.breakdown["phase_peaks"])
+    exact = all(a == b for a, b in fields.values())
+    probed = [b for b in DENSE_SWEEP if sources[b] == "probe"]
+    mean_fwd = sum(fwd_s.values()) / len(fwd_s)
+    best = max((b for b in DENSE_SWEEP if fits[b]), default=None)
+    emit("dense_sweep", config=cfg.name, n_layers=cfg.n_layers,
+         seq_len=TRAIN_SEQ, capacity=capacity,
+         batches=[{"batch": b, "estimate": reports[b].peak_bytes,
+                   "tensor_estimate": reports[b].peak_tensor_bytes,
+                   "fits": fits[b], "source": sources[b]}
+                  for b in DENSE_SWEEP],
+         **{k: res.stats[k] for k in ("traced", "interpolated", "fallback",
+                                      "wall_s", "model")},
+         trace_cache=res.stats["trace_cache"],
+         fwd_trace_s={str(b): x for b, x in fwd_s.items()},
+         # the CPU the sweep cost (its own seconds, and its probes'
+         # forward+backward traces where they were made ahead) against
+         # what the sequential gate would pay for the same grid: a trace
+         # at every batch (the mean of this job's measured traces) and
+         # the same replays
+         sweep_cpu_s=res.stats["wall_s"] + sum(fwd_s[b] for b in probed
+                                               if b in fwd_s),
+         sequential_cpu_s=len(DENSE_SWEEP) * mean_fwd
+         + sum(r.wall_time_s for r in res.reports),
+         gate_batch=gate_b, gate_batch_source=sources[gate_b],
+         gate_batch_equal=exact,
+         gate_batch_fields={k: list(v) for k, v in fields.items()},
+         xmem_vs_probes=[{"batch": b, "xmem": reports[b].peak_bytes,
+                          "probe_peak": peak,
+                          "rel": (reports[b].peak_bytes - peak) / peak}
+                         for b, peak in probes],
+         admitted=best, trains=best is not None and best != gate_b)
+    if not exact:
+        raise AssertionError(f"the sweep's report at batch {gate_b} "
+                             f"({sources[gate_b]}) differs from the gate's: "
+                             f"{fields}")
+    if best is not None and best != gate_b:
+        dense_sweep_train(cfg, policy, best, reports[best], sources[best])
+    reject = min((b for b in DENSE_SWEEP if not fits[b]
+                  and (best is None or b > best)), default=None)
+    if reject is not None:
+        dense_sweep_reject(cfg, policy, est, reject, reports[reject],
+                           sources[reject])
+
+
+def dense_sweep_train(cfg, policy, batch: int, rep, source: str) -> None:
+    """``batch``, which the sweep admitted above the gate's batch, trained
+    ``TRAIN_STEPS`` steps on the card against ``rep``, its estimate, held
+    to ``RESERVED_TOL`` and ``ALLOCATED_TOL`` as every training job is."""
+    import math
+
+    import torch
+    from repro_torch.configs.base import smoke_shape
+    from repro_torch.launch import train as trn
+    from repro_torch.models import model as M
+
+    torch.cuda.empty_cache()
+    params = M.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    got = trn.train_loop(cfg, smoke_shape(TRAIN_SEQ, batch), policy,
+                         steps=TRAIN_STEPS, device="cuda", params=params)
+    run = got.out
+    if not all(math.isfinite(x) for x in run.losses):
+        raise AssertionError(f"non-finite training loss {run.losses}")
+    rel_reserved = (rep.peak_bytes - got.reserved) / got.reserved
+    rel_allocated = (rep.peak_tensor_bytes - got.allocated) / got.allocated
+    emit("dense_sweep_train", config=cfg.name, n_layers=cfg.n_layers,
+         batch=batch, source=source, seq_len=TRAIN_SEQ,
+         steps=TRAIN_STEPS, losses=run.losses,
+         step_ms=[x * 1e3 for x in run.step_s],
+         estimate=rep.peak_bytes, tensor_estimate=rep.peak_tensor_bytes,
+         measured_reserved=got.reserved, measured_allocated=got.allocated,
+         rel_err_reserved=rel_reserved, rel_err_allocated=rel_allocated,
+         card_alloc_retries=got.n_alloc_retries,
+         segments_mib=sorted(round(x / 2**20, 1) for x in got.segment_sizes),
+         sim_segments_mib=sorted(round(x["size"] / 2**20, 1)
+                                 for x in rep.sim.segments),
+         phase_peaks=rep.breakdown["phase_peaks"], memory=device_memory())
+    del params, run, got
+    torch.cuda.empty_cache()
+    within(f"{cfg.name} sweep batch {batch} training reserved",
+           rel_reserved, RESERVED_TOL)
+    within(f"{cfg.name} sweep batch {batch} training allocated",
+           rel_allocated, ALLOCATED_TOL)
+
+
+def dense_sweep_reject(cfg, policy, est, batch: int, rep,
+                       source: str) -> None:
+    """The sweep's verdict at ``batch``, the smallest batch above the
+    admitted ones that it rejects (its replay at the card's capacity
+    ran out of memory), on the card: ``TRAIN_STEPS`` steps there either
+    run out of memory too (the verdict holds) or run (a false
+    rejection; then the unbounded estimate stands beside the measured
+    peak). ``dense_sweep_reject`` has the card's reserved peak up to
+    the failure beside the simulated one (``rep``). A comparison, not a
+    gate."""
+    import torch
+    from repro_torch.configs.base import smoke_shape
+    from repro_torch.configs.registry import input_specs
+    from repro_torch.launch import train as trn
+    from repro_torch.models import model as M
+    from repro_torch.train import make_estimator_hooks
+
+    fwd_bwd, update, opt_init = make_estimator_hooks(cfg, policy)
+    unbounded = est.estimate_training(
+        fwd_bwd, M.abstract_params(cfg),
+        input_specs(cfg, smoke_shape(TRAIN_SEQ, batch)), update_fn=update,
+        opt_init_fn=opt_init)
+    torch.cuda.empty_cache()
+    params = M.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    card_oom = None
+    try:
+        got = trn.train_loop(cfg, smoke_shape(TRAIN_SEQ, batch), policy,
+                             steps=TRAIN_STEPS, device="cuda", params=params)
+        reserved, allocated = got.reserved, got.allocated
+        del got
+    except torch.OutOfMemoryError as e:
+        card_oom = str(e).splitlines()[0]
+        # the window's peaks up to the failure (measured_training reset
+        # them when it started)
+        reserved = torch.cuda.max_memory_reserved()
+        allocated = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    emit("dense_sweep_reject", config=cfg.name, n_layers=cfg.n_layers,
+         batch=batch, source=source, seq_len=TRAIN_SEQ, steps=TRAIN_STEPS,
+         estimate_oom=rep.oom, estimate_at_capacity=rep.peak_bytes,
+         unbounded_estimate=unbounded.peak_bytes,
+         unbounded_tensor_estimate=unbounded.peak_tensor_bytes,
+         card_oom=card_oom is not None, card_error=card_oom,
+         measured_reserved=reserved, measured_allocated=allocated,
+         verdict_holds=card_oom is not None, memory=device_memory())
 
 
 def gate_only_estimate(cfg, policy, batch: int, est) -> dict:
@@ -1445,7 +1719,7 @@ def main() -> int:
         info = phase_device()
         phase_build()
         rows = phase_kernels()
-        phase_serving(rows, "qwen3-32b")
+        phase_serving(rows, "qwen3-32b", serving_sweep=True)
         phase_moe_layer()
         phase_attention_layer()
         phase_serving(rows, MOE_ARCH, "moe_")

@@ -18,11 +18,12 @@
    reserved bytes, the estimate, and the OOM verdict.
 
 ``estimate_serving`` is the single-phase estimate of a prefill or
-decode step with a persistent KV cache.
+decode step with a persistent KV cache; ``estimate_request_stream``
+composes a decode step's working set with a paged-KV request stream
+(``ServingEstimate``).
 
 Not ported (ROADMAP Queue 1): the frozen seed pipeline
-(``fastpath=False``), host offload, collectives and sharding, and the
-request-stream estimate.
+(``fastpath=False``), host offload, collectives and sharding.
 """
 from __future__ import annotations
 
@@ -39,7 +40,8 @@ from .analyzer import classify_blocks
 from .cache import BlockInfo, TraceCache, TracedPhase, trace_key
 from .events import (BlockKind, BlockLifecycle, PeriodicBlocks, Phase,
                      periodic_breakdown_peaks_fast, reduced_for_breakdown)
-from .orchestrator import MemoryOrchestrator, OrchestratorPolicy
+from .orchestrator import (ContinuousBatchingScheduler, MemoryOrchestrator,
+                           OrchestratorPolicy, ServingKnobs)
 from .simulator import MemorySimulator, SimResult
 from .tracer import trace_fn
 
@@ -307,12 +309,15 @@ class XMemEstimator:
                                          t0=t0, cache_stats=cache_stats)
 
     def trace_phases(self, fwd_bwd_fn, params, batch, update_fn=None,
-                     opt_init_fn=None
+                     opt_init_fn=None, fwd: TracedPhase | None = None
                      ) -> tuple[TracedPhase, TracedPhase | None,
                                 TracedPhase | None]:
         """Stage 1: per-phase CPU traces (cached). The forward+backward
         runs with grad mode on; its outputs are the loss (``OUTPUT``)
-        and the gradients (``GRAD``)."""
+        and the gradients (``GRAD``). Passing ``fwd`` skips the forward
+        trace: the sweep service enters here with an interpolated
+        forward phase and still gets the optimizer phases resolved
+        (normally cache hits: they do not depend on the batch)."""
         def fwd_out_kinds(out):
             n_out = len(pytree.tree_leaves(out))
             n_loss = len(pytree.tree_leaves(out[0])) \
@@ -320,12 +325,13 @@ class XMemEstimator:
             return [BlockKind.OUTPUT] * n_loss + \
                    [BlockKind.GRAD] * (n_out - n_loss)
 
-        fwd = self._trace_phase(
-            fwd_bwd_fn,
-            [(params, BlockKind.PARAM, "params"),
-             (batch, BlockKind.INPUT, "batch")],
-            Phase.FORWARD_BACKWARD, out_kind_fn=fwd_out_kinds, tag="fwd",
-            grad=True)
+        if fwd is None:
+            fwd = self._trace_phase(
+                fwd_bwd_fn,
+                [(params, BlockKind.PARAM, "params"),
+                 (batch, BlockKind.INPUT, "batch")],
+                Phase.FORWARD_BACKWARD, out_kind_fn=fwd_out_kinds,
+                tag="fwd", grad=True)
         init = upd = None
         opt_state = None
         if opt_init_fn is not None:
@@ -492,3 +498,160 @@ class XMemEstimator:
                        "persistent_by_kind": by_kind},
             wall_time_s=time.perf_counter() - t0,
             num_events=len(entry.trace.events))
+
+    def estimate_request_stream(self, step_fn: Callable, params, cache,
+                                batch, *, stream, knobs=None,
+                                kv_bytes_per_token: int,
+                                resident_bytes_per_request: int = 0,
+                                base_dtype_bytes: int = 2,
+                                capacity: int | None = None
+                                ) -> "ServingEstimate":
+        """Estimate a serving runtime over a request-driven timeline.
+
+        Two CPU-side components compose additively:
+
+        * **step working set**: the decode step ``step_fn(params, cache,
+          batch)`` is traced once under the SAME trace key as
+          :meth:`estimate_serving` (tag ``"serve"``; the JAX package
+          keys it ``"decode"``, its own ``estimate_serving``'s tag), so
+          the serving gate's decode trace serves the stream and a knob
+          sweep over page size, concurrency and KV dtype re-lowers the
+          request stream but never re-traces. Its transient peak (the
+          bytes above parameters and cache) is scaled batch-linearly
+          from the traced batch to ``knobs.max_concurrent``: decode
+          activations are per-sequence, so the linear model is exact for
+          attention-free layers and an upper bound for the rest. In the
+          GPU preset the step's replay holds cuBLAS's workspace from the
+          step's first matmul on, as :meth:`estimate_serving`'s does;
+          the workspace is one per handle, not per sequence, so it is
+          added to the scaled transient once, unscaled (the JAX package
+          has no workspace). The step's output (the logits) is part of
+          the transient, as the JAX package's docstring says; its code
+          subtracts every block alive at the step's end, the output
+          among them, which leaves the logits out of both parts of the
+          sum (2,430,976 B at qwen3-32b's batch 8; the card's decode
+          holds them);
+        * **paged KV pressure**: the request stream is lowered by the
+          continuous-batching scheduler to page-granular allocations
+          and replayed through the allocator simulation exactly (join,
+          extend, leave and evict at the tick each happens).
+
+        ``worst_case_peak_bytes`` is what an admission gate must trust;
+        ``steady_state_peak_bytes`` (median live paged bytes) is what a
+        capacity planner provisions for sustained load.
+        """
+        t0 = time.perf_counter()
+        knobs = knobs or ServingKnobs()
+        entry = self._trace_phase(
+            step_fn,
+            [(params, BlockKind.PARAM, "params"),
+             (cache, BlockKind.CACHE, "cache"),
+             (batch, BlockKind.INPUT, "batch")],
+            Phase.DECODE, tag="serve")
+        blocks = list(entry.lifecycles)
+        blocks = self.orchestrator.mark_persistent(
+            blocks, kinds=(BlockKind.PARAM, BlockKind.CACHE))
+        blocks = self.orchestrator.fold_fused(blocks)
+        workspace = (self._cublas_workspaces(blocks)
+                     if self.cublas_workspace else [])
+        step_sim = MemorySimulator(self.allocator_policy, self.capacity,
+                                   engine="columnar").replay(
+            blocks + workspace)
+        resident = {kind: sum(b.sharded_size for b in blocks
+                              if b.free_t is None and b.block_kind is kind)
+                    for kind in (BlockKind.PARAM, BlockKind.CACHE)}
+        params_bytes = resident[BlockKind.PARAM]
+        ws_bytes = sum(b.size for b in workspace)
+        transient = max(step_sim.peak_allocated - sum(resident.values())
+                        - ws_bytes, 0)
+        traced_batch = _leading_dim(batch)
+        transient_scaled = -(-transient * knobs.max_concurrent
+                             // max(traced_batch, 1)) + ws_bytes
+
+        sched = ContinuousBatchingScheduler(knobs)
+        rb = sched.lower(stream, kv_bytes_per_token,
+                         resident_bytes_per_request=resident_bytes_per_request,
+                         base_dtype_bytes=base_dtype_bytes)
+        paged_sim = MemorySimulator(self.allocator_policy, self.capacity,
+                                    engine="columnar").replay(rb)
+        live = sorted(v for v in rb.meta["live_paged"] if v > 0)
+        paged_steady = live[len(live) // 2] if live else 0
+        tok_b = rb.meta["kv_bytes_per_token"]
+        monolithic = knobs.max_concurrent * (
+            stream.max_seq_len * tok_b + int(resident_bytes_per_request))
+
+        worst = params_bytes + transient_scaled + paged_sim.peak_reserved
+        steady = params_bytes + transient_scaled + paged_steady
+        cap = capacity if capacity is not None else self.capacity
+        return ServingEstimate(
+            steady_state_peak_bytes=int(steady),
+            worst_case_peak_bytes=int(worst),
+            persistent_bytes=int(params_bytes),
+            step_transient_bytes=int(transient_scaled),
+            paged_kv_peak_bytes=int(paged_sim.peak_reserved),
+            paged_kv_steady_bytes=int(paged_steady),
+            monolithic_cache_bytes=int(monolithic),
+            oom=worst > cap,
+            sim=paged_sim,
+            breakdown={
+                "num_blocks": rb.num_blocks,
+                "ticks": rb.meta["ticks"],
+                "evictions": rb.meta["evictions"],
+                "max_occupancy": max(rb.meta["occupancy"], default=0),
+                "page_bytes": rb.meta["page_bytes"],
+                "knobs": rb.meta["knobs"],
+            },
+            wall_time_s=time.perf_counter() - t0,
+            num_events=len(entry.trace.events) + 2 * rb.num_blocks)
+
+
+def _leading_dim(tree) -> int:
+    """Batch size of a traced decode input: leading dim of the first
+    tensor leaf (1 for scalars and empty trees)."""
+    for leaf in pytree.tree_leaves(tree):
+        shape = getattr(leaf, "shape", ())
+        if shape:
+            return int(shape[0])
+    return 1
+
+
+@dataclasses.dataclass
+class ServingEstimate:
+    """Serving-runtime estimate over a request-mix timeline.
+
+    Unlike :class:`EstimateReport`'s single number, serving capacity has
+    two operating points: the worst-case peak (admission gate: must fit
+    or the server runs out of memory under the scripted burst) and the
+    steady-state median (provisioning: what sustained load holds). The
+    paged-vs-monolithic pair says what paged attention buys."""
+
+    steady_state_peak_bytes: int
+    worst_case_peak_bytes: int
+    persistent_bytes: int         # parameters, always resident
+    step_transient_bytes: int     # decode working set at max_concurrent
+    paged_kv_peak_bytes: int      # allocator peak of the paged stream
+    paged_kv_steady_bytes: int    # median live paged bytes
+    monolithic_cache_bytes: int   # max_concurrent x max_seq full cache
+    oom: bool
+    sim: SimResult
+    breakdown: dict
+    wall_time_s: float
+    num_events: int
+
+    def fits(self, capacity: int) -> bool:
+        return self.worst_case_peak_bytes <= capacity
+
+    def to_json(self) -> dict:
+        return {
+            "steady_state_peak_bytes": self.steady_state_peak_bytes,
+            "worst_case_peak_bytes": self.worst_case_peak_bytes,
+            "persistent_bytes": self.persistent_bytes,
+            "step_transient_bytes": self.step_transient_bytes,
+            "paged_kv_peak_bytes": self.paged_kv_peak_bytes,
+            "paged_kv_steady_bytes": self.paged_kv_steady_bytes,
+            "monolithic_cache_bytes": self.monolithic_cache_bytes,
+            "oom": self.oom,
+            "breakdown": {k: v for k, v in self.breakdown.items()
+                          if k != "knobs"},
+            "knobs": self.breakdown.get("knobs", {}),
+        }

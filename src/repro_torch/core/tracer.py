@@ -262,9 +262,15 @@ class TorchMemoryTracer(TorchDispatchMode):
                 for b in self.blocks.values()]
 
 
-def _fake_like(t: torch.Tensor) -> torch.Tensor:
+def _fake_like(t: torch.Tensor, device="cpu") -> torch.Tensor:
     return torch.empty_strided(tuple(t.shape), tuple(t.stride()),
-                               dtype=t.dtype, device="cpu")
+                               dtype=t.dtype, device=device)
+
+
+def aval_bytes(t: torch.Tensor) -> int:
+    """Bytes of the block ``trace_fn`` registers for the input ``t``:
+    the storage of a fresh tensor of its shape and strides."""
+    return int(_fake_like(t, "meta").untyped_storage().nbytes())
 
 
 def trace_fn(fn: Callable, *args, arg_kinds: Sequence[BlockKind] | None = None,

@@ -40,6 +40,7 @@ from ..configs.base import smoke_shape
 from ..configs.registry import decode_input_specs, input_specs
 from ..core.baselines.directprobe import measured_peak
 from ..core.estimator import XMemEstimator
+from ..core.orchestrator import RequestMix
 from ..models import model as M
 from ..train.data import to_device
 from ..train.train_step import make_prefill_step, make_serve_step
@@ -121,6 +122,18 @@ def serving_cache_profile(cfg, max_len: int,
     lo, hi = total(max_len), total(max_len + probe_delta)
     kv_tok = max((hi - lo) // probe_delta, 0)
     return kv_tok, max(lo - kv_tok * max_len, 0)
+
+
+def parse_mix(spec: str, arrival_period: int = 1,
+              shared_prefix_len: int = 0) -> RequestMix:
+    """``prompt:decode:count[,prompt:decode:count...]`` -> RequestMix."""
+    buckets = []
+    for part in spec.split(","):
+        p, d, c = (int(x) for x in part.split(":"))
+        buckets.append((p, d, c))
+    return RequestMix(buckets=tuple(buckets),
+                      arrival_period=max(int(arrival_period), 1),
+                      shared_prefix_len=max(int(shared_prefix_len), 0))
 
 
 def device_capacity(device="cuda") -> int:

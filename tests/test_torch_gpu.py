@@ -322,3 +322,51 @@ def test_directprobe_vs_measured_training_on_the_card():
           f"{(estimate - got.reserved) / got.reserved:+.4%}")
     assert [b for b, _ in probe.last_probes] == [1, 2]
     assert abs(estimate - got.reserved) / got.reserved < 0.25
+
+
+@pytest.mark.gpu
+def test_sweep_admitted_batch_trains_within_tolerance_on_the_card():
+    # qwen3-32b's full width, two layers, a 8192-token vocabulary, AdamW
+    # with clipping, sequences of 1024: one sweep over batches 1-6 at the
+    # card's capacity (probes 1, 4, 6 and the repair at 2 traced, 3 and 5
+    # synthesized), then the largest admitted batch trains 3 steps. Its
+    # estimate is held to chip_smoke's RESERVED_TOL (5 %). Run it in a
+    # pytest process of its own (-k sweep_admitted), as a training job
+    # has one
+    _need_card()
+    import math
+
+    from repro_torch.configs.base import smoke_shape
+    from repro_torch.core.baselines.directprobe import measured_training
+    from repro_torch.core.sweep import SweepPoint, SweepService
+    from repro_torch.train import (SyntheticDataset, TrainPolicy,
+                                   make_estimator_hooks)
+    cfg = dataclasses.replace(treg.get_config("qwen3-32b"), n_layers=2,
+                              vocab=8192)
+    fwd_bwd, update, opt_init = make_estimator_hooks(cfg, TrainPolicy())
+    params = TM.abstract_params(cfg)
+    capacity = tserve.device_capacity()
+    batches = range(1, 7)
+    res = SweepService(XMemEstimator.for_torch_gpu()).estimate_many(
+        [SweepPoint(fwd_bwd, params,
+                    treg.input_specs(cfg, smoke_shape(1024, b)),
+                    update_fn=update, opt_init_fn=opt_init,
+                    capacity=capacity) for b in batches])
+    admitted = [b for b, rep in zip(batches, res.reports)
+                if not rep.oom and rep.peak_bytes <= capacity]
+    assert admitted and res.stats["interpolated"] > 0
+    batch = max(admitted)
+    rep = res.reports[batch - 1]
+    shape = smoke_shape(1024, batch)
+    ds = SyntheticDataset(cfg, shape)
+    torch.cuda.empty_cache()
+    got = measured_training(fwd_bwd, update, opt_init,
+                            TM.init_params(cfg, 0, device="cuda"),
+                            lambda step: ds.device_batch(step, "cuda"), 3)
+    rel = (rep.peak_bytes - got.reserved) / got.reserved
+    print(f"sweep {res.sources} {res.stats['wall_s']:.2f} s; batch {batch}: "
+          f"estimate {rep.peak_bytes}, measured reserved {got.reserved} "
+          f"({rel:+.4%}); tensors {rep.peak_tensor_bytes} vs "
+          f"{got.allocated}")
+    assert all(math.isfinite(x) for x in got.out.losses)
+    assert abs(rel) <= 0.05

@@ -117,9 +117,11 @@ print("N", sum(n.startswith("repro_torch") for n in sys.modules))
 print("HAVE", sorted(n for n in sys.modules if n.startswith("repro_torch.")))
 """
 
-# the training, MoE, VLM/audio and baselines slices' modules, which the
-# walk above must have imported
+# the training, MoE, VLM/audio, baselines and sweep slices' modules,
+# which the walk above must have imported
 _TRAINING_MODULES = (
+    "repro_torch.core.sweep", "repro_torch.launch.hillclimb",
+    "repro_torch.obs.timeline",
     "repro_torch.core.analyzer", "repro_torch.core.cache",
     "repro_torch.core.metrics", "repro_torch.train.optimizer",
     "repro_torch.train.data", "repro_torch.train.train_step",
