@@ -21,7 +21,9 @@ non-zero:
    through the model-layout wrapper, which pads it to 128), and their
    times beside the plain version, a library call and the bound;
 4. main    — qwen3-32b at full width, depth cut to 8 layers: the xMem
-   serving gate (``pick_batch``, traced on the CPU), then ``serve`` on
+   serving gate (``pick_batch``, traced on the CPU and decided through
+   the admission service, as every gate below is: each candidate's
+   ``source`` and ``rung``), then ``serve`` on
    the card (two requests of 2048-token prompts, 16 decoded tokens
    each), the launch counts by kernel (all on sm90), each phase's
    estimate beside the
@@ -31,7 +33,9 @@ non-zero:
    the dense path's (``parity``), and ``serving_sweep``: the
    request-driven serving estimate over a knob grid (page size x
    concurrency x KV dtype) from one decode trace, its monolithic
-   composition at the admitted batch beside the card's decode peak;
+   composition at the admitted batch beside the card's decode peak, and
+   ``serve_mix``: the request-driven gate (``pick_serving``) for the
+   same requests, held to the sweep's row at its knobs to the byte;
 5. moe_layer — one phi3.5-moe MoE layer at full width: the card's
    allocator requests (with the ATen function that made each) against
    the trace's, for the serving forward and for a training forward and
@@ -86,6 +90,12 @@ non-zero:
    that batch trained on the card against its estimate; and
    ``dense_sweep_reject``: the smallest batch the sweep rejects above
    the admitted ones, run on the card (does it run out of memory too?);
+   and ``admission_degraded``: batches 1, 2, 4, 5 and 8 decided on the
+   degradation ladder's lower rungs (the tracer and replay failing with
+   the gate's decision log; the tracer hanging past a 2 s deadline; no
+   evidence, the analytic bound), each answer held to the card's truth
+   there: no admitted batch may need more than its safe threshold, and
+   none the card cannot run may be admitted;
 9a. dense_sgd_train — the same job with SGD (``--train dense_sgd``):
    the paper's optimizer axis, where DNNMem's estimate stays put;
 10. moe_train — the same in a child of its own (``--train moe``) for
@@ -95,7 +105,13 @@ non-zero:
    (``--train vlm``), then ``vlm_ckpt``: its final parameters and AdamW
    state saved with the port's ``CheckpointManager`` to a temporary
    directory, restored into fresh card tensors and held to the trained
-   ones byte for byte;
+   ones byte for byte; its gate's traces write through to a persistent
+   trace store, and ``admission_daemon``: the admission daemon on a
+   local port answers the admitted batch as the wire's ``train``
+   request, equal to the gate's decision from memory, then, restarted
+   over the same store, from disk with no trace; the wire's other kinds;
+   the run's measured peaks ingested as telemetry against the
+   decision;
 12. audio_train — the same for musicgen-medium at full width, depth cut
    to 24 layers (``--train audio``). The training paths launch neither
    attention kernel: they train through the chunked attention, as the
@@ -125,6 +141,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -226,6 +243,16 @@ SERVING_PAGES = (16, 64, 256)
 SERVING_CONCURRENCY = (0.5, 1, 2)
 SERVING_KV_BYTES = (1, 2)
 CKPT_JOB = "vlm"            # the job whose final state goes through a checkpoint
+# the job whose traces write through to a persistent trace store and
+# whose admitted batch the admission daemon answers over a socket, then
+# again from disk after a restart
+DAEMON_JOB = "vlm"
+# the dense job's batches decided on the degradation ladder's lower rungs
+# and held to the card: the run's truth at the gate's batch (4),
+# DirectProbe's probe peaks (1, 2), the sweep's rejection the card ran
+# out of memory at (5), and the gate's rejection (8)
+DEGRADED_BATCHES = (1, 2, 4, 5, 8)
+HANG_DEADLINE_S = 2.0       # the exact rung's budget in the hang pass
 # |flash - dense| / max|dense| on the batch-1 prefill logits, bf16 model:
 # both paths do f32 attention math from the same bf16 q/k/v and round
 # the output to bf16, so they differ by output roundings carried
@@ -600,6 +627,8 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
     cfg = path_config(arch, n_layers, impl="flash")
     capacity = srv.device_capacity()
     t0 = time.perf_counter()
+    # decided through the admission service (its exact rung: the
+    # estimator's replay at the capacity)
     batch, gate = srv.pick_batch(cfg, max_len, capacity,
                                  candidates=candidates)
     gate_s = time.perf_counter() - t0
@@ -618,7 +647,7 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
         prefill_fn, M.abstract_params(cfg), cache_abs,
         srv.prompt_specs(cfg, batch, prompt_len), capacity=capacity)
     pre_est_s = time.perf_counter() - t0
-    dec_est = gate["decode"]
+    dec_est = gate["decode"].report
     emit(f"{prefix}gate", config=cfg.name, n_layers=cfg.n_layers,
          capacity=capacity, seconds=gate_s, prefill_estimate_seconds=pre_est_s,
          batch=batch,
@@ -713,8 +742,9 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
         within(f"{cfg.name} {name} allocated", got["rel_err_allocated"],
                SERVING_ALLOCATED_TOL)
     if serving_sweep:
-        phase_serving_sweep(cfg, batch, max_len, prompt_len, capacity,
-                            res.peaks["decode"])
+        at = phase_serving_sweep(cfg, batch, max_len, prompt_len, capacity,
+                                 res.peaks["decode"])
+        phase_serve_mix(cfg, batch, max_len, prompt_len, capacity, at)
     del res
     torch.cuda.empty_cache()
     phase_requests(cfg, params, batch, prefix, max_len, prompt_len, est,
@@ -761,7 +791,9 @@ def phase_serving_sweep(cfg, batch: int, max_len: int, prompt_len: int,
     transient + the whole cache) stands beside ``decode``, the card's
     measured decode peak at ``batch``, and the step's transient beside
     the card's (its live peak above the parameters and the cache): a
-    comparison, not a gate. Fails if the grid cost more than 2 traces."""
+    comparison, not a gate. Fails if the grid cost more than 2 traces.
+    Returns the estimate at page size 16, ``max_concurrent = batch`` and
+    2-byte KV."""
     from repro_torch.core.estimator import XMemEstimator
     from repro_torch.core.orchestrator import ServingKnobs
     from repro_torch.core.sweep import SweepService
@@ -816,6 +848,56 @@ def phase_serving_sweep(cfg, batch: int, max_len: int, prompt_len: int,
     if len(grid) < 12 or res.stats["trace_cache"]["misses"] > 2:
         raise AssertionError(f"serving sweep: {len(grid)} knobs cost "
                              f"{res.stats['trace_cache']} traces")
+    return next(e for k, e in res if k.page_size == 16
+                and k.max_concurrent == batch and k.kv_dtype_bytes == 2)
+
+
+def phase_serve_mix(cfg, batch: int, max_len: int, prompt_len: int,
+                    capacity: int, swept) -> None:
+    """The request-driven serving gate (``pick_serving``, through the
+    admission service) for ``batch`` requests of ``prompt_len`` prompt
+    and ``DECODE_TOKENS`` decoded positions at page size 16,
+    ``max_concurrent = batch`` and 2-byte KV, held to ``swept``, the
+    serving sweep's estimate at the same knobs, to the byte. Fails if
+    they differ, if the gate rejects, or if it cost more than one
+    trace. Beside it, the reference's way: the decode step traced at
+    batch 1 and its transient scaled to the concurrency (a comparison,
+    not a gate)."""
+    from repro_torch.core.estimator import XMemEstimator
+    from repro_torch.core.orchestrator import ServingKnobs
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import model as M
+
+    knobs = ServingKnobs(page_size=16, max_concurrent=batch,
+                         kv_dtype_bytes=2)
+    mix = srv.parse_mix(f"{prompt_len}:{DECODE_TOKENS}:{batch}")
+    decision, gate = srv.pick_serving(cfg, mix, capacity, knobs=knobs,
+                                      max_len=max_len)
+    want = swept.to_json()
+    equal = gate["serving"] == want
+    misses = decision.provenance["trace_cache"]["misses"]
+    one = XMemEstimator.for_torch_gpu().estimate_request_stream(
+        srv.make_decode_fn(cfg), M.abstract_params(cfg),
+        M.init_cache(cfg, 1, max_len, device="meta"),
+        srv.decode_input(cfg, 1), stream=mix.stream(), knobs=knobs,
+        kv_bytes_per_token=gate["kv_bytes_per_token"],
+        resident_bytes_per_request=gate["resident_bytes_per_request"],
+        capacity=capacity)
+    emit("serve_mix", config=cfg.name, n_layers=cfg.n_layers, batch=batch,
+         capacity=capacity, admit=decision.admit, rung=decision.rung,
+         source=decision.provenance["source"], wall_s=decision.wall_s,
+         trace_cache=decision.provenance["trace_cache"],
+         serving=gate["serving"], equal_to_serving_sweep=equal,
+         batch1_trace={"worst": one.worst_case_peak_bytes,
+                       "step_transient": one.step_transient_bytes,
+                       "under_by": want["worst_case_peak_bytes"]
+                       - one.worst_case_peak_bytes},
+         kv_bytes_per_token=gate["kv_bytes_per_token"],
+         resident_bytes_per_request=gate["resident_bytes_per_request"])
+    if not equal or not decision.admit or misses > 1:
+        raise AssertionError(f"serve_mix: equal {equal}, admit "
+                             f"{decision.admit}, misses {misses}: "
+                             f"{gate['serving']} vs {want}")
 
 
 def phase_recurrent_parity(cfg, prefix: str) -> None:
@@ -1188,7 +1270,16 @@ def phase_train(job: str, rows_path: str) -> None:
     arch, n_layers, candidates = TRAIN_JOBS[job]
     cfg = path_config(arch, n_layers)
     policy = train_policy(job)
-    est = XMemEstimator.for_torch_gpu()
+    store_dir = None
+    if job == DAEMON_JOB:
+        # the gate's traces write through to a store the daemon reads
+        from repro_torch.core.cache import TraceCache
+        from repro_torch.service import TraceStore
+        store_dir = str(Path(rows_path).parent / f"{job}_store")
+        est = XMemEstimator.for_torch_gpu(
+            trace_cache=TraceCache(store=TraceStore(store_dir)))
+    else:
+        est = XMemEstimator.for_torch_gpu()
     trace_s, fwd_s = {}, {}
     ahead = list(candidates[:TRACED_AHEAD])
     if job == "dense":
@@ -1206,8 +1297,10 @@ def phase_train(job: str, rows_path: str) -> None:
         raise AssertionError(f"training job {job}: no turn on the card")
     memory = device_memory()
     capacity = srv.device_capacity()
+    # decided through the admission service over the traces made ahead
+    service = trn.gate_service(est)
     batch, gate = trn.pick_train_batch(cfg, policy, TRAIN_SEQ, capacity,
-                                       candidates, est=est)
+                                       candidates, service=service)
     emit(f"{prefix}train_gate", config=cfg.name, n_layers=cfg.n_layers,
          seq_len=TRAIN_SEQ, optimizer=policy.optimizer,
          clip_norm=policy.clip_norm, microbatches=policy.microbatches,
@@ -1275,7 +1368,7 @@ def phase_train(job: str, rows_path: str) -> None:
     if job == CKPT_JOB:
         phase_checkpoint({"params": params, "opt_state": run.opt_state},
                          run.step, prefix)
-    truth = got.reserved
+    truth, truth_allocated = got.reserved, got.allocated
     # DirectProbe's runs start from a card that holds none of this run's
     # tensors: parameters, optimizer state, the window's record
     del params, run, got
@@ -1284,8 +1377,21 @@ def phase_train(job: str, rows_path: str) -> None:
                           est, trace_s[batch] + rep.wall_time_s, fwd_s,
                           rows_path)
     if job == "dense":
-        phase_dense_sweep(cfg, policy, est, capacity, gate, fwd_s,
-                          row["probes"] or ())
+        reject, reject_truth = phase_dense_sweep(
+            cfg, policy, est, capacity, gate, fwd_s, row["probes"] or ())
+        # the card's truths: the run's reserved peak at the gate's batch,
+        # the probes' peaks, the sweep's rejection as the card ran it,
+        # and the batches it cannot run (None): the gate's rejections
+        truths = {batch: truth, **dict(row["probes"] or ())}
+        if reject is not None:
+            truths[reject] = reject_truth
+        truths.update({c["batch"]: None for c in gate["candidates"]
+                       if not c["fits"]})
+        phase_admission_degraded(cfg, policy, est, service, capacity,
+                                 truths)
+    if job == DAEMON_JOB:
+        phase_admission_daemon(cfg, policy, est, store_dir, capacity, gate,
+                               truth, truth_allocated, rel_reserved)
 
 
 def phase_baselines(spec, cfg, capacity: int, truth: int, rep, est,
@@ -1427,8 +1533,9 @@ def phase_dense_sweep(cfg, policy, est, capacity: int, gate: dict,
     reject = min((b for b in DENSE_SWEEP if not fits[b]
                   and (best is None or b > best)), default=None)
     if reject is not None:
-        dense_sweep_reject(cfg, policy, est, reject, reports[reject],
-                           sources[reject])
+        return reject, dense_sweep_reject(cfg, policy, est, reject,
+                                          reports[reject], sources[reject])
+    return None, None
 
 
 def dense_sweep_train(cfg, policy, batch: int, rep, source: str) -> None:
@@ -1473,10 +1580,12 @@ def dense_sweep_train(cfg, policy, batch: int, rep, source: str) -> None:
 
 
 def dense_sweep_reject(cfg, policy, est, batch: int, rep,
-                       source: str) -> None:
+                       source: str) -> int | None:
     """The sweep's verdict at ``batch``, the smallest batch above the
     admitted ones that it rejects (its replay at the card's capacity
-    ran out of memory), on the card: ``TRAIN_STEPS`` steps there either
+    ran out of memory), on the card (returns the card's reserved peak,
+    None when it ran out of memory there): ``TRAIN_STEPS`` steps there
+    either
     run out of memory too (the verdict holds) or run (a false
     rejection; then the unbounded estimate stands beside the measured
     peak). ``dense_sweep_reject`` has the card's reserved peak up to
@@ -1519,6 +1628,253 @@ def dense_sweep_reject(cfg, policy, est, batch: int, rep,
          card_oom=card_oom is not None, card_error=card_oom,
          measured_reserved=reserved, measured_allocated=allocated,
          verdict_holds=card_oom is not None, memory=device_memory())
+    return None if card_oom is not None else reserved
+
+
+def phase_admission_degraded(cfg, policy, est, service, capacity: int,
+                             truths: dict) -> None:
+    """The degradation ladder's answers for the dense job's
+    ``DEGRADED_BATCHES`` held to the card's ``truths`` (batch -> measured
+    reserved peak, or None for a batch the card cannot run), in three
+    passes: the gate's ``service`` with the tracer and the replay
+    raising (rung 2 from the gate's decision log), a service with that
+    log over an empty cache whose tracer hangs past ``HANG_DEADLINE_S``
+    (the hang fires before any trace work), and a fresh service with no
+    evidence (rung 3, the analytic bound). Every answer that admits must
+    have ``safe_threshold`` at or above the card's truth, and none may
+    admit a batch the card cannot run: such an answer is the
+    reference's ``ChaosSafetyViolation``, and fails the run. A batch
+    with no truth is listed with the truth "unmeasured". Beside each
+    answer, what the reference's rules give on the same evidence (a
+    comparison, not a gate): rung 2 without the monotone floor, rung 3
+    from the request's avals alone."""
+    import math
+
+    from repro_torch.configs.base import smoke_shape
+    from repro_torch.core.cache import TraceCache
+    from repro_torch.launch import train as trn
+    from repro_torch.service import (AdmissionService, ChaosSafetyViolation,
+                                     FaultPlan, FaultSpec, plan_raising_at)
+    from repro_torch.service.degrade import (analytic_request_bound,
+                                             request_family, request_scalar)
+
+    def fresh(log=None):
+        svc = AdmissionService(est.with_cache, workers=1,
+                               cache=TraceCache())
+        if log is not None:
+            svc.log = log
+        return svc
+    hang = FaultPlan([FaultSpec("tracer", "hang", hang_s=600.0,
+                                times=None)])
+    passes = [("sweep_log", service, plan_raising_at("tracer", "replay"),
+               None),
+              ("hang", fresh(service.log), hang, HANG_DEADLINE_S),
+              ("analytic", fresh(), plan_raising_at("tracer", "replay"),
+               None)]
+    out, violations = {}, []
+    for name, svc, plan, deadline in passes:
+        rows = []
+        t0 = time.perf_counter()
+        with svc.inject_faults(plan):
+            for b in DEGRADED_BATCHES:
+                req = trn.train_request(cfg, policy,
+                                        smoke_shape(TRAIN_SEQ, b), capacity,
+                                        deadline_s=deadline)
+                d = svc.decide(req)
+                truth = truths.get(b, "unmeasured")
+                # the reference's rule at the rung that answered
+                if d.rung == "sweep":
+                    raw = svc.log.lookup(request_family(req),
+                                         request_scalar(req))[0]
+                else:
+                    req.meta = {}
+                    raw = analytic_request_bound(req, svc.log)
+                ref = math.ceil(raw * d.margin)
+                row = {"batch": b, "admit": d.admit, "rung": d.rung,
+                       "margin": d.margin, "derived":
+                           d.provenance.get("derived"),
+                       "raw_peak_bytes": d.raw_peak_bytes,
+                       "safe_threshold": d.safe_threshold,
+                       "wall_s": d.wall_s, "truth": truth,
+                       "card_runs": truth is not None,
+                       "headroom": (d.safe_threshold - truth
+                                    if isinstance(truth, int) else None),
+                       "reference_rule": {
+                           "safe_threshold": ref,
+                           "admit": ref <= capacity,
+                           "unsafe": ref <= capacity and (
+                               truth is None or (isinstance(truth, int)
+                                                 and ref < truth))},
+                       "rung_errors": d.provenance["rung_errors"][:2]}
+                if not d.degraded:
+                    violations.append(f"{name} batch {b}: not degraded")
+                elif d.admit and (truth is None or (
+                        isinstance(truth, int) and d.safe_threshold < truth)):
+                    violations.append(f"{name} batch {b}: admits at "
+                                      f"{d.safe_threshold} B, card {truth}")
+                rows.append(row)
+        out[name] = {"seconds": time.perf_counter() - t0, "answers": rows,
+                     "health": {k: svc.health()[k] for k in
+                                ("rungs", "timeouts", "abandoned_rungs")}}
+    # the abandoned rungs stop at their next checkpoint once the hang's
+    # scope has cancelled it: none may stay behind
+    deadline = time.perf_counter() + 30
+    while time.perf_counter() < deadline and any(
+            t.name == "xmem-rung" and t.is_alive()
+            for t in threading.enumerate()):
+        time.sleep(0.1)
+    stranded = sum(t.name == "xmem-rung" and t.is_alive()
+                   for t in threading.enumerate())
+    emit("admission_degraded", config=cfg.name, n_layers=cfg.n_layers,
+         seq_len=TRAIN_SEQ, capacity=capacity,
+         truths={str(b): t for b, t in truths.items()},
+         decision_log=service.log.stats(), passes=out,
+         stranded_rung_threads=stranded, violations=violations,
+         memory=device_memory())
+    if violations or stranded:
+        raise ChaosSafetyViolation(f"degraded answers against the card: "
+                                   f"{violations}; {stranded} rung "
+                                   f"threads stranded")
+
+
+def phase_admission_daemon(cfg, policy, est, store_dir: str, capacity: int,
+                           gate: dict, reserved: int, allocated: int,
+                           rel_reserved: float) -> None:
+    """The training job's admitted batch through the admission daemon:
+    an ``AdmissionServer`` on a local port over a service that shares
+    the job's trace cache answers the wire's ``train`` request for the
+    same job (built by the wire from ``{"arch", "smoke": false, "seq",
+    "batch", "hbm_gib"}``); it must equal the gate's decision, from
+    memory, with no trace. The wire's other kinds on the same connection:
+    ``health``, ``metrics`` (JSON and Prometheus text, parsed back),
+    ``stats``, a malformed line and a ``plan`` request (structured
+    errors on a live connection). Then the daemon drains and stops, a
+    second one starts over a fresh service on the same store directory,
+    and the same request must come back with the same bytes from disk,
+    with no trace. Last, the run's measured peaks go to the telemetry
+    ingestor against the job's digest and family, and the residual read
+    back must be the ``train`` line's error."""
+    import hashlib
+    import socket
+
+    from repro_torch.core.cache import fn_digest
+    from repro_torch.launch import served
+    from repro_torch.launch import train as trn
+    from repro_torch.obs import parse_prometheus
+    from repro_torch.obs.ingest import GPUMemorySnapshot, TelemetryIngestor
+    from repro_torch.service import AdmissionService
+    from repro_torch.service.degrade import request_family
+
+    batch, decision = gate["batch"], gate["decision"]
+    wire = {"kind": "train", "arch": TRAIN_JOBS[DAEMON_JOB][0],
+            "smoke": False,
+            "seq": TRAIN_SEQ, "batch": batch, "hbm_gib": capacity / 2**30}
+
+    def start(svc):
+        server = served.AdmissionServer(("127.0.0.1", 0), svc)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        return server, thread
+
+    def stop(server, thread):
+        host, port = server.server_address[:2]
+        resp = served.request_once(host, port, {"kind": "shutdown"})
+        thread.join(timeout=120)
+        server.server_close()
+        if not resp.get("shutdown") or thread.is_alive():
+            raise AssertionError(f"the daemon did not stop: {resp}")
+
+    def lines(server, payloads):
+        host, port = server.server_address[:2]
+        with socket.create_connection((host, port), timeout=600) as s:
+            f = s.makefile("rwb")
+            out = []
+            for p in payloads:
+                f.write(p if isinstance(p, bytes)
+                        else (json.dumps(p) + "\n").encode())
+                f.flush()
+                out.append(json.loads(f.readline()))
+            return out
+
+    fields = ("peak_bytes", "peak_tensor_bytes", "persistent_bytes")
+    want = {f: getattr(decision, f) for f in fields}
+    svc = AdmissionService(workers=1, cache=est.trace_cache)
+    server, thread = start(svc)
+    t0 = time.perf_counter()
+    first, health, metrics, stats, bad, plan = lines(server, [
+        wire, {"kind": "health"}, {"kind": "metrics"}, {"kind": "stats"},
+        b"{not json\n", dict(wire, kind="plan")])
+    first_s = time.perf_counter() - t0
+    stop(server, thread)
+    svc.close()
+    save = est.trace_cache.store.stats()
+    disk_bytes = sum(f.stat().st_size for f in Path(store_dir).iterdir()
+                     if f.is_file())
+    svc2 = AdmissionService(workers=1, store_dir=store_dir)
+    server, thread = start(svc2)
+    t0 = time.perf_counter()
+    (second,) = lines(server, [wire])
+    second_s = time.perf_counter() - t0
+    stop(server, thread)
+    load = svc2.cache.store.stats()
+    svc2.close()
+    prom = parse_prometheus(metrics.get("prometheus", ""))
+
+    # telemetry: the run's peaks against the job's digest and family
+    req = trn.train_request(cfg, policy,
+                            served._train_job(wire)[2], capacity)
+    digest = fn_digest(req.fwd_bwd_fn)
+    family = hashlib.sha256(repr(request_family(req)).encode()).hexdigest()
+    ing = TelemetryIngestor(str(Path(store_dir) / "telemetry"))
+    ing.ingest(digest, family, decision.peak_bytes,
+               snapshot=GPUMemorySnapshot(
+                   timestamp=time.time(), reserved_mb=reserved / 2**20,
+                   allocated_mb=allocated / 2**20))
+    summary = ing.summary()[f"{digest}/{family}"]
+    ing.close()
+    residual = summary["mean_residual_bytes"]
+    residual_rel = -residual / reserved
+
+    checks = {
+        "first_equals_gate": all(first.get(f) == want[f] for f in fields),
+        "first_from_memory": first.get("provenance", {}).get("source")
+        == "memory" and first["provenance"]["trace_cache"]["misses"] == 0,
+        "second_equals_gate": all(second.get(f) == want[f]
+                                  for f in fields),
+        "second_from_disk": second.get("provenance", {}).get("source")
+        == "disk" and second["provenance"]["trace_cache"]["misses"] == 0
+        and second["provenance"]["trace_cache"]["store_hits"] > 0,
+        "health": health.get("ok") and health["health"]["status"] == "ok",
+        "metrics": prom.get("xmem_service_requests_total") == 1.0
+        and metrics["metrics"]["counters"][
+            "xmem_service_requests_total"] == 1,
+        "stats": stats.get("stats", {}).get("requests_served") == 1,
+        "malformed": bad.get("kind") == "error" and not bad["ok"],
+        "plan_not_ported": plan.get("kind") == "error"
+        and "slice 10" in plan.get("error", ""),
+        "residual_is_train_error": residual == reserved
+        - decision.peak_bytes and residual_rel == rel_reserved,
+    }
+    emit("admission_daemon", config=cfg.name,
+         n_layers=cfg.n_layers, batch=batch, capacity=capacity,
+         hbm_gib=wire["hbm_gib"], gate=want,
+         first={k: first.get(k) for k in (*fields, "admit", "provenance",
+                                           "wall_s", "rung")},
+         first_s=first_s,
+         second={k: second.get(k) for k in (*fields, "admit", "provenance",
+                                            "wall_s", "rung")},
+         second_s=second_s,
+         store={"entries": load["entries"], "disk_bytes": disk_bytes,
+                "saves": save["saves"], "save_s": save["save_s"],
+                "loads": load["loads"], "load_s": load["load_s"]},
+         health=health.get("health", {}).get("rungs"),
+         prometheus_series=len(prom), malformed=bad, plan=plan,
+         telemetry={"model_digest": digest, "family": family,
+                    "summary": summary, "residual_rel": residual_rel,
+                    "train_rel_err_reserved": rel_reserved},
+         checks=checks, memory=device_memory())
+    if not all(checks.values()):
+        raise AssertionError(f"admission daemon: {checks}")
 
 
 def gate_only_estimate(cfg, policy, batch: int, est) -> dict:

@@ -16,10 +16,16 @@ structurally identical closures (``make_estimator_hooks`` builds new
 ones for every decision) therefore hit. Functions whose closures cannot
 be hashed canonically fall back to a weak ``id(fn)`` reference.
 
-A port of ``repro.core.cache`` without its persistent store (the
-admission service is not ported). Each ``XMemEstimator`` owns one cache
-unless the caller passes a shared one. Entries are immutable by
-contract: consumers copy before rewriting lifecycles.
+A port of ``repro.core.cache``, with its persistent second level:
+``TraceCache(store=...)`` looks a content-addressed key that misses in
+memory up in a :class:`~repro_torch.service.store.TraceStore` on disk
+and writes fresh traces through, so warm estimates survive process
+restarts (``stable_key_digest`` names the file, the same in every
+process). One stated difference from the reference: each
+``XMemEstimator`` owns a fresh cache unless the caller passes one,
+where the reference's estimators share ``GLOBAL_TRACE_CACHE``; only the
+admission service defaults to the global cache. Entries are immutable
+by contract: consumers copy before rewriting lifecycles.
 """
 from __future__ import annotations
 
@@ -243,29 +249,85 @@ def key_is_content_addressed(key: tuple | None) -> bool:
     return key is not None and key[0][0] == "code"
 
 
-class TraceCache:
-    """Thread-safe LRU of ``TracedPhase`` entries with hit/miss counts."""
+def stable_key_digest(key: tuple) -> str:
+    """Process-independent string digest for a content-addressed key:
+    the persistent store's file name. Every part of the key reprs the
+    same in every process (the TreeSpecs are already their ``str``
+    form, the function identity a content digest)."""
+    return hashlib.sha256(repr(key).encode()).hexdigest()
 
-    def __init__(self, maxsize: int = 64):
+
+class TraceCache:
+    """Thread-safe LRU of ``TracedPhase`` entries with hit/miss counts.
+
+    ``store`` layers a persistent second level under the in-memory LRU:
+    content-addressed keys that miss in memory are looked up in the
+    store (``store_hits`` counts those), and fresh traces are written
+    through. Each thread's own counts (``thread_stats``) let concurrent
+    admission decisions report their own provenance.
+    """
+
+    def __init__(self, maxsize: int = 64, store=None):
         self.maxsize = maxsize
+        self.store = store
         self._data: "OrderedDict[tuple, tuple[weakref.ref | None, TracedPhase]]" \
             = OrderedDict()
         self._lock = threading.RLock()
         self.hits = 0
         self.misses = 0
+        self.store_hits = 0
+        self._tstats = threading.local()
+
+    def _tlocal(self):
+        t = self._tstats
+        if not hasattr(t, "hits"):
+            t.hits = t.misses = t.store_hits = 0
+        return t
+
+    def thread_stats(self) -> dict:
+        """Counters accumulated by the calling thread only: the basis
+        for per-request provenance deltas under concurrency."""
+        t = self._tlocal()
+        return {"hits": t.hits, "misses": t.misses,
+                "store_hits": t.store_hits}
+
+    def _count(self, field: str) -> None:
+        setattr(self, field, getattr(self, field) + 1)
+        t = self._tlocal()
+        setattr(t, field, getattr(t, field) + 1)
+        # memory hits are the common case on a warm path and go
+        # unannotated; misses and store promotions get a trace event
+        if field != "hits":
+            obs_spans.event(f"trace_cache.{field}")
 
     def get(self, fn, key: tuple | None) -> TracedPhase | None:
+        if key is None:
+            with self._lock:
+                self._count("misses")
+            return None
         with self._lock:
-            ent = self._data.get(key) if key is not None else None
+            ent = self._data.get(key)
             if ent is not None:
                 ref, payload = ent
                 if ref is None or ref() is fn:
-                    self.hits += 1
+                    self._count("hits")
                     self._data.move_to_end(key)
                     return payload
                 del self._data[key]   # id() was recycled: stale entry
-            self.misses += 1
-        obs_spans.event("trace_cache.misses")
+            probe_store = (self.store is not None
+                           and key_is_content_addressed(key))
+        if probe_store:
+            # the disk read happens outside the lock, so a store lookup
+            # never stalls other threads' memory hits; a racing
+            # duplicate load inserts the same entry twice, harmlessly
+            payload = self.store.load(key)
+            if payload is not None:
+                with self._lock:
+                    self._count("store_hits")
+                    self._insert(key, None, payload)
+                return payload
+        with self._lock:
+            self._count("misses")
         return None
 
     def _insert(self, key: tuple, ref, payload: TracedPhase) -> None:
@@ -281,6 +343,8 @@ class TraceCache:
             # any function with the same digest gives the same trace
             with self._lock:
                 self._insert(key, None, payload)
+            if self.store is not None:
+                self.store.save(key, payload)
             return
         data = self._data
 
@@ -298,9 +362,27 @@ class TraceCache:
         with self._lock:
             self._insert(key, ref, payload)
 
+    def clear(self) -> None:
+        with self._lock:
+            self._data.clear()
+            self.hits = 0
+            self.misses = 0
+            self.store_hits = 0
+            self._tstats = threading.local()
+
     def __len__(self) -> int:
         return len(self._data)
 
     def stats(self) -> dict:
-        return {"hits": self.hits, "misses": self.misses,
-                "entries": len(self._data), "maxsize": self.maxsize}
+        d = {"hits": self.hits, "misses": self.misses,
+             "entries": len(self._data), "maxsize": self.maxsize,
+             "store_hits": self.store_hits}
+        if self.store is not None:
+            d["store"] = self.store.stats()
+        return d
+
+
+#: The admission service's default cache, shared by every service built
+#: without one, so one-off services (a gate built per call) stay warm.
+#: An ``XMemEstimator`` made without a cache owns a fresh one instead.
+GLOBAL_TRACE_CACHE = TraceCache()

@@ -102,7 +102,8 @@ class XMemEstimator:
                  iterations: int = 3,
                  capacity: int = 1 << 62,
                  trace_cache: TraceCache | None = None,
-                 cublas_workspace: int = 0):
+                 cublas_workspace: int = 0,
+                 checkpoint: Callable[[str], None] | None = None):
         self.allocator_policy = allocator_policy
         self.cublas_workspace = cublas_workspace
         self.orchestrator = MemoryOrchestrator(
@@ -112,6 +113,10 @@ class XMemEstimator:
         # explicit None check: an empty TraceCache is falsy (__len__)
         self.trace_cache = TraceCache() if trace_cache is None \
             else trace_cache
+        # stage hook (the admission service's fault sites): called with
+        # "tracer" after a trace-cache miss, just before the fake-tensor
+        # trace, and with "replay" before the allocator replay
+        self.checkpoint = checkpoint
 
     @classmethod
     def for_torch_gpu(cls, **kw) -> "XMemEstimator":
@@ -134,6 +139,17 @@ class XMemEstimator:
             optimizer_upcast_coexist=False))
         return cls(**kw)
 
+    def with_cache(self, trace_cache: TraceCache) -> "XMemEstimator":
+        """A new estimator with this one's settings over
+        ``trace_cache`` (the admission service's per-thread estimators
+        around a caller's estimator)."""
+        return XMemEstimator(
+            allocator_policy=self.allocator_policy,
+            orchestrator_policy=self.orchestrator.policy,
+            iterations=self.iterations, capacity=self.capacity,
+            trace_cache=trace_cache,
+            cublas_workspace=self.cublas_workspace)
+
     # -- phase tracing (cached) -------------------------------------------
     def _trace_phase(self, fn, args_with_kinds, phase,
                      out_kind_fn: Callable | None = None, tag: str = "",
@@ -145,6 +161,8 @@ class XMemEstimator:
         hit = cache.get(fn, key)
         if hit is not None:
             return hit
+        if self.checkpoint is not None:
+            self.checkpoint("tracer")
         counts = [spec.num_leaves for spec in specs]
 
         def flat_fn(*leaves):
@@ -373,6 +391,8 @@ class XMemEstimator:
 
     def _estimate_from_phases(self, fwd, upd, init, capacity, t0,
                               cache_stats) -> EstimateReport:
+        if self.checkpoint is not None:
+            self.checkpoint("replay")
         policy = self.orchestrator.policy
         if policy.offload is not None and policy.offload.enabled:
             raise NotImplementedError(

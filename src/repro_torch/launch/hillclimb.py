@@ -14,13 +14,15 @@ fails), every point replayed through the CUDA caching allocator
 simulation at the capacity. On a CUDA device the capacity is what the
 card's caching allocator can hold (``serve.device_capacity``); on the
 CPU it must be given (``--capacity-gib``). The result goes to
-``<out>/xmem_batch__<arch>.json``.
+``<out>/xmem_batch__<arch>.json``. The CLI runs the search under an
+enabled ``Observability`` handle: one correlation ID covers the whole
+search (every trace and replay span under it carries it), printed and
+written with the result.
 
 Not ported: the JAX package's cells A/B/C, which lower XLA programs and
 price them with a TPU's rates (XLA-only, as its ``hlo_analysis.py``);
 ``--xmem-mesh`` and ``--xmem-plan``, which need the sharding module and
-the planner; and the search's correlation ID, which waits for the
-admission service's ``Observability``.
+the planner.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from ..configs.registry import input_specs
 from ..core.estimator import XMemEstimator
 from ..core.sweep import SweepPoint, SweepService
 from ..models import model as M
+from ..obs import Observability
 from ..train import TrainPolicy, make_estimator_hooks
 from .serve import device_capacity
 
@@ -58,11 +61,13 @@ def xmem_batch_hillclimb(arch: str, capacity: int, seq: int = 64,
                          max_batch: int = 512, smoke: bool = True,
                          verbose: bool = True, microbatches: int = 1,
                          timeline_out: str | None = None,
-                         n_layers: int | None = None) -> dict:
+                         n_layers: int | None = None, obs=None) -> dict:
     """The largest batch of the grid whose estimate, replayed at
     ``capacity``, fits (no simulated OOM, peak reserved <= capacity),
     and its exact minimum feasible capacity from the estimate's own
-    composition (``min_feasible_capacity``)."""
+    composition (``min_feasible_capacity``). With an enabled ``obs``
+    (``repro_torch.obs.Observability``) the sweep runs under one
+    correlation ID, returned as ``correlation_id``."""
     cfg = get_smoke(arch) if smoke else get_config(arch)
     cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
     m = max(int(microbatches), 1)
@@ -76,7 +81,14 @@ def xmem_batch_hillclimb(arch: str, capacity: int, seq: int = 64,
                          input_specs(cfg, smoke_shape(seq, gb)),
                          update_fn=update, opt_init_fn=opt_init,
                          capacity=capacity) for gb in grid]
-    result = svc.estimate_many(points)
+    cid = None
+    if obs is not None and obs.enabled:
+        # one correlation ID covers the whole gated search: every
+        # trace/replay span under it carries the same ID
+        with obs.request("hillclimb", job_id=f"{cfg.name}-climb") as cid:
+            result = svc.estimate_many(points)
+    else:
+        result = svc.estimate_many(points)
     probes, best = [], None
     for gb, p, rep, src in zip(grid, points, result.reports,
                                result.sources):
@@ -97,6 +109,10 @@ def xmem_batch_hillclimb(arch: str, capacity: int, seq: int = 64,
            "sweep": {k: result.stats[k] for k in
                      ("points", "traced", "interpolated", "fallback",
                       "wall_s", "trace_cache")}}
+    if cid is not None:
+        out["correlation_id"] = cid
+        if verbose:
+            print(f"[xmem-hillclimb] correlation_id={cid}", flush=True)
     if timeline_out is not None:
         rep_tl = best[2] if best is not None else result.reports[-1]
         from ..obs.timeline import write_timeline
@@ -162,7 +178,8 @@ def main(argv=None) -> int:
                              max_batch=args.max_batch, smoke=args.smoke,
                              microbatches=args.microbatches,
                              timeline_out=args.timeline_out,
-                             n_layers=args.n_layers)
+                             n_layers=args.n_layers,
+                             obs=Observability(enabled=True))
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, f"xmem_batch__{args.xmem_batch}.json")
     with open(path, "w") as f:

@@ -8,6 +8,19 @@ prefill, before a token decodes. Then the server runs the steps on the
 card and reads each phase's real peak (``measured_peak``) beside its
 estimate.
 
+Two gates live here, both deciding through the admission service
+(:mod:`repro_torch.service.admission`), so repeated gate decisions are
+warm (content-addressed trace cache) and, with ``--store-dir``, survive
+restarts:
+
+* ``pick_batch`` — the static gate: the largest fixed batch whose
+  monolithic-cache prefill/decode estimates fit;
+* ``pick_serving`` — the request-driven gate (``--serve-mix``): a
+  continuous-batching runtime over a ``RequestMix`` (paged KV cache,
+  prefix sharing, speculative scratch) gated on the worst-case peak of
+  the scripted timeline. Serving counter-offers (``--plan``) need the
+  remediation planner, which is not ported (slice 10).
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \
       --n-layers 8 --max-len 2064 --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \
@@ -16,6 +29,9 @@ estimate.
       --max-len 2320 --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
       --max-len 2064 --tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \
+      --smoke --device cpu --capacity-gib 0.25 \
+      --serve-mix 48:16:8,16:48:8 --max-concurrent 8 --page-size 16
 
 ``--max-len`` counts every position of the cache: a VLM's patches, the
 prompt and the decoded tokens.
@@ -39,9 +55,9 @@ from ..configs import get_config, get_smoke
 from ..configs.base import smoke_shape
 from ..configs.registry import decode_input_specs, input_specs
 from ..core.baselines.directprobe import measured_peak
-from ..core.estimator import XMemEstimator
-from ..core.orchestrator import RequestMix
+from ..core.orchestrator import RequestMix, ServingKnobs
 from ..models import model as M
+from ..service import RUNGS, AdmissionService
 from ..train.data import to_device
 from ..train.train_step import make_prefill_step, make_serve_step
 
@@ -146,41 +162,115 @@ def device_capacity(device="cuda") -> int:
     return int(free + torch.cuda.memory_reserved(device))
 
 
+def _gate_service(service, store_dir):
+    """The admission service a gate call runs against: ``service``, or
+    a one-worker service over ``store_dir``'s persistent trace store
+    (the process-global trace cache without one)."""
+    if service is not None:
+        return service
+    return AdmissionService(workers=1, store_dir=store_dir)
+
+
+_SOURCE_ORDER = ("traced", "disk", "memory", "degraded")
+
+
+def gate_provenance(*decisions) -> dict:
+    """One gate candidate's ``source`` and ``rung`` from its decisions:
+    the coldest source (``traced`` before ``disk`` before ``memory``)
+    and the lowest rung that answered any of them."""
+    sources = [d.provenance["source"] for d in decisions]
+    return {"source": min(sources, key=_SOURCE_ORDER.index),
+            "rung": max((d.rung for d in decisions), key=RUNGS.index)}
+
+
 def pick_batch(cfg, max_len: int, capacity: int | None = None,
-               candidates=(64, 32, 16, 8, 4, 2, 1)):
+               candidates=(64, 32, 16, 8, 4, 2, 1), service=None,
+               store_dir=None):
     """Largest batch whose serving estimates fit ``capacity`` (default:
     what the card's caching allocator can hold, ``device_capacity``).
 
     Gates on ``max(prefill, decode)`` peak, the prefill traced at a
-    ``max_len`` prompt. Returns ``(batch, gate)``; ``gate`` holds every
-    candidate tried and the admitting reports, or ``(None, gate)`` when
-    no candidate fits."""
+    ``max_len`` prompt, each decided through ``service`` (default: a
+    one-worker ``AdmissionService`` over ``store_dir``). Returns
+    ``(batch, gate)``; ``gate`` holds every candidate tried (with its
+    decisions' ``source`` and ``rung``) and the admitting decisions
+    (``prefill``, ``decode``), or ``(None, gate)`` when no candidate
+    fits."""
     if capacity is None:
         capacity = device_capacity()
-    est = XMemEstimator.for_torch_gpu()
+    svc = _gate_service(service, store_dir)
     params = M.abstract_params(cfg)
     decode_fn = make_decode_fn(cfg)
     prefill_fn = make_prefill_fn(cfg)
     gate: dict = {"capacity": capacity, "candidates": []}
     for b in candidates:
         cache = M.init_cache(cfg, b, max_len, device="meta")
-        dec = est.estimate_serving(decode_fn, params, cache,
-                                   decode_input(cfg, b), capacity=capacity)
-        pre = est.estimate_serving(prefill_fn, params, cache,
-                                   prompt_specs(cfg, b, max_len),
-                                   capacity=capacity)
+        dec = svc.decide_serving(
+            f"{cfg.name}-b{b}-decode", decode_fn, params, cache,
+            decode_input(cfg, b), capacity=capacity)
+        pre = svc.decide_serving(
+            f"{cfg.name}-b{b}-prefill", prefill_fn, params, cache,
+            prompt_specs(cfg, b, max_len), capacity=capacity)
         peak = max(pre.peak_bytes, dec.peak_bytes)
         # replayed at ``capacity``, the simulated allocator frees its
         # cache and retries before it gives up, as the real one does: a
-        # candidate fits when neither replay ran out of memory
-        fits = not (pre.oom or dec.oom) and peak <= capacity
+        # candidate fits when neither replay ran out of memory and both
+        # peaks fit (each decision's ``admit``)
+        fits = pre.admit and dec.admit
         gate["candidates"].append(
             {"batch": b, "prefill_peak": pre.peak_bytes,
-             "decode_peak": dec.peak_bytes, "peak": peak, "fits": fits})
+             "decode_peak": dec.peak_bytes, "peak": peak, "fits": fits,
+             **gate_provenance(pre, dec)})
         if fits:
             gate.update(batch=b, prefill=pre, decode=dec, peak=peak)
             return b, gate
     return None, gate
+
+
+def pick_serving(cfg, mix, capacity: int, *, knobs=None, space=None,
+                 max_len: int | None = None, service=None,
+                 store_dir=None):
+    """Request-driven serving gate: admit or reject a request mix under
+    a continuous-batching runtime at ``capacity`` bytes.
+
+    Returns ``(decision, gate)``. ``gate["serving"]`` carries the
+    :class:`~repro_torch.core.estimator.ServingEstimate` summary
+    (worst-case vs steady-state peak, paged-vs-monolithic cache bytes).
+
+    The decode step is traced at ``knobs.max_concurrent`` sequences,
+    where the reference traces batch 1 and scales the step's transient
+    to the concurrency: the scaling is linear in the traced batch, and a
+    batch-1 trace is not linear (its size-1 dims make copies views). For
+    qwen3-32b at full width, 8 layers and a 2064-position cache, eight
+    times the batch-1 trace's transient is 110,477,312 B where the
+    batch-8 trace's is 177,967,104 B. Traced at the concurrency, the
+    gate's step is the one the server runs, and repeated gates at one
+    concurrency share the cached trace. ``space`` (serving
+    counter-offers) needs the remediation planner and raises."""
+    if space is not None:
+        raise NotImplementedError(
+            "serving counter-offers (pick_serving(space=...)) need the "
+            "remediation planner, which is not ported yet (slice 10 of "
+            "the port)")
+    svc = _gate_service(service, store_dir)
+    knobs = knobs or ServingKnobs()
+    stream = mix.stream() if hasattr(mix, "stream") else mix
+    if max_len is None:
+        max_len = max(stream.max_seq_len, 8)
+    kv_tok, resident = serving_cache_profile(cfg, max_len)
+    params = M.abstract_params(cfg)
+    decode_fn = make_decode_fn(cfg)
+    b = knobs.max_concurrent
+    cache = M.init_cache(cfg, b, max_len, device="meta")
+    decision = svc.decide_serving(
+        f"{cfg.name}-mix", decode_fn, params, cache, decode_input(cfg, b),
+        capacity=capacity, mix=mix, knobs=knobs,
+        kv_bytes_per_token=kv_tok, resident_bytes_per_request=resident)
+    gate = {"serving": decision.breakdown.get("serving", {}),
+            "kv_bytes_per_token": kv_tok,
+            "resident_bytes_per_request": resident,
+            "max_len": max_len}
+    return decision, gate
 
 
 @dataclasses.dataclass
@@ -259,6 +349,36 @@ def serve(cfg, batch: int, max_len: int, prompt_len: int, tokens: int,
                        prefill_s=pre_s, decode_s=dec_s, peaks=peaks)
 
 
+def serve_mix_main(cfg, args, capacity: int, service=None) -> int:
+    """``--serve-mix`` entry: the request-driven gate for the mix and
+    knobs of ``args`` at ``capacity`` bytes; exits 0 when it admits, 2
+    when it rejects."""
+    if args.plan:
+        raise NotImplementedError(
+            "--plan (serving counter-offers) needs the remediation "
+            "planner, which is not ported yet (slice 10 of the port)")
+    mix = parse_mix(args.serve_mix, args.arrival_period, args.shared_prefix)
+    knobs = ServingKnobs(page_size=args.page_size,
+                         max_concurrent=args.max_concurrent,
+                         kv_dtype_bytes=args.kv_dtype_bytes,
+                         prefix_cache=not args.no_prefix_cache,
+                         speculative_k=args.speculative_k)
+    decision, gate = pick_serving(cfg, mix, capacity, knobs=knobs,
+                                  max_len=args.max_len, service=service,
+                                  store_dir=args.store_dir)
+    s = gate["serving"]
+    verdict = "admitted" if decision.admit else "rejected"
+    print(f"[xmem] serve-mix {cfg.name}: {verdict} — worst-case "
+          f"{s.get('worst_case_peak_bytes', decision.peak_bytes) / 2**20:.1f}"
+          f" MiB / steady "
+          f"{s.get('steady_state_peak_bytes', 0) / 2**20:.1f} MiB vs "
+          f"{capacity / 2**30:.2f} GiB "
+          f"(paged {s.get('paged_kv_peak_bytes', 0) / 2**20:.1f} MiB vs "
+          f"monolithic {s.get('monolithic_cache_bytes', 0) / 2**20:.1f} "
+          f"MiB; source {decision.provenance['source']})")
+    return 0 if decision.admit else 2
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -270,27 +390,49 @@ def main(argv=None) -> int:
     ap.add_argument("--capacity-gib", type=float, default=None,
                     help="default: what the card's allocator can hold")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--store-dir", default=None,
+                    help="persistent trace store for the serving gate")
+    ap.add_argument("--serve-mix", default=None,
+                    help="request-driven gate: prompt:decode:count[,...]")
+    ap.add_argument("--arrival-period", type=int, default=1)
+    ap.add_argument("--shared-prefix", type=int, default=0)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--max-concurrent", type=int, default=8)
+    ap.add_argument("--kv-dtype-bytes", type=int, default=2)
+    ap.add_argument("--no-prefix-cache", action="store_true")
+    ap.add_argument("--speculative-k", type=int, default=0)
+    ap.add_argument("--plan", action="store_true",
+                    help="on rejection, search serving counter-offers "
+                         "(not ported: slice 10)")
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(
         cfg, n_layers=args.n_layers or cfg.n_layers,
         attention=dataclasses.replace(cfg.attention, impl="flash"))
+    on_card = torch.device(args.device).type == "cuda"
     if args.capacity_gib:
         capacity = int(args.capacity_gib * 2**30)
-    elif torch.device(args.device).type == "cuda":
+    elif on_card:
         capacity = device_capacity(args.device)
+    elif args.serve_mix:
+        ap.error("--serve-mix on the CPU needs --capacity-gib (the CPU "
+                 "has no card to read a capacity from)")
     else:
         capacity = 1 << 62          # a CPU run budgets nothing
 
-    batch, gate = pick_batch(cfg, args.max_len, capacity)
+    if args.serve_mix:
+        return serve_mix_main(cfg, args, capacity)
+    batch, gate = pick_batch(cfg, args.max_len, capacity,
+                             store_dir=args.store_dir)
     if batch is None:
         print(f"[xmem] no serving batch fits {capacity / 2**30:.2f} GiB "
               f"-> rejected")
         return 2
     print(f"[xmem] serving batch={batch} (peak {gate['peak'] / 2**20:.1f} "
           f"MiB = max(prefill {gate['prefill'].peak_bytes / 2**20:.1f}, "
-          f"decode {gate['decode'].peak_bytes / 2**20:.1f}))")
+          f"decode {gate['decode'].peak_bytes / 2**20:.1f}); gate source "
+          f"{gate['candidates'][-1]['source']})")
     res = serve(cfg, batch, args.max_len, args.max_len - args.tokens,
                 args.tokens, args.device)
     print(json.dumps({

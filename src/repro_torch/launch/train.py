@@ -15,12 +15,15 @@ the estimate.
   PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-1b \\
       --smoke --device cpu --steps 6 --ckpt-dir ckpt --ckpt-every 2
 
-Capacity comes from the card (``serve.device_capacity``: the free
-memory plus what the caching allocator holds); a CPU run budgets
-nothing. With ``--ckpt-dir`` the loop resumes from the newest valid
-checkpoint there, saves every ``--ckpt-every`` steps and at the end,
-and saves an emergency checkpoint when a step raises (the JAX package's
-``train_loop`` flow, in its checkpoint format).
+The gate decides through the admission service
+(:mod:`repro_torch.service.admission`), whose exact rung is the
+estimator's replay at the capacity. Capacity comes from the card
+(``serve.device_capacity``: the free memory plus what the caching
+allocator holds); a CPU run budgets nothing. With ``--ckpt-dir`` the
+loop resumes from the newest valid checkpoint there, saves every
+``--ckpt-every`` steps and at the end, and saves an emergency checkpoint
+when a step raises (the JAX package's ``train_loop`` flow, in its
+checkpoint format).
 """
 from __future__ import annotations
 
@@ -37,64 +40,102 @@ from ..configs import get_config, get_smoke
 from ..configs.base import ShapeSpec, smoke_shape
 from ..configs.registry import input_specs
 from ..core.baselines.directprobe import measured_training
-from ..core.estimator import EstimateReport, XMemEstimator
+from ..core.estimator import XMemEstimator
 from ..models import model as M
 from ..train import (SyntheticDataset, TrainPolicy, TrainRun,
                      make_estimator_hooks, run_steps)
 from ..train.checkpoint import CheckpointManager
 from ..train.elastic import StragglerMonitor
-from .serve import device_capacity
+from ..service import AdmissionRequest, AdmissionService, JobContext
+from .serve import device_capacity, gate_provenance
+
+
+def gate_service(est: XMemEstimator | None = None) -> AdmissionService:
+    """A one-worker admission service whose estimators have ``est``'s
+    settings and share its trace cache (default: a fresh
+    ``for_torch_gpu`` estimator's), so traces ``est`` made ahead are
+    hits."""
+    est = est or XMemEstimator.for_torch_gpu()
+    return AdmissionService(est.with_cache, workers=1,
+                            cache=est.trace_cache)
+
+
+def train_request(cfg, policy: TrainPolicy, shape: ShapeSpec,
+                  capacity: int, **kw) -> AdmissionRequest:
+    """The admission request of a training job: its estimator hooks,
+    abstract parameters and input specs, and the job itself as
+    ``meta["job"]`` (the analytic rung's configuration bound)."""
+    fwd_bwd, update, opt_init = make_estimator_hooks(cfg, policy)
+    return AdmissionRequest(
+        job_id=f"{cfg.name}/b{shape.global_batch}/s{shape.seq_len}"
+               f"/mb{policy.microbatches}",
+        fwd_bwd_fn=fwd_bwd, params=M.abstract_params(cfg),
+        batch=input_specs(cfg, shape), update_fn=update,
+        opt_init_fn=opt_init, capacity=capacity,
+        meta={"job": JobContext(cfg, policy, shape)}, **kw)
 
 
 def admission_check(cfg, policy: TrainPolicy, shape: ShapeSpec,
-                    capacity: int, est: XMemEstimator | None = None
-                    ) -> tuple[bool, EstimateReport]:
+                    capacity: int, est: XMemEstimator | None = None,
+                    service: AdmissionService | None = None,
+                    return_decision: bool = False):
     """xMem gate: estimate the job's peak device memory on the CPU and
     admit it when the replay at ``capacity`` neither ran out of memory
-    nor reserved more than ``capacity``."""
-    est = est or XMemEstimator.for_torch_gpu()
-    fwd_bwd, update, opt_init = make_estimator_hooks(cfg, policy)
-    rep = est.estimate_training(fwd_bwd, M.abstract_params(cfg),
-                                input_specs(cfg, shape), update_fn=update,
-                                opt_init_fn=opt_init, capacity=capacity)
-    return (not rep.oom and rep.peak_bytes <= capacity), rep
+    nor reserved more than ``capacity``. Decides through ``service``
+    (default: ``gate_service(est)``). Returns ``(admit, report)``, and
+    the ``AdmissionDecision`` too with ``return_decision`` (the report
+    is None when a degraded rung answered)."""
+    if service is None:
+        service = gate_service(est)
+    decision = service.decide(train_request(cfg, policy, shape, capacity))
+    if return_decision:
+        return decision.admit, decision.report, decision
+    return decision.admit, decision.report
 
 
 def pick_train_batch(cfg, policy: TrainPolicy, seq_len: int,
                      capacity: int | None = None,
                      candidates=(8, 4, 2, 1),
-                     est: XMemEstimator | None = None):
+                     est: XMemEstimator | None = None,
+                     service: AdmissionService | None = None):
     """Largest global batch of ``candidates`` whose training estimate,
     replayed at ``capacity`` (default: ``device_capacity()``), fits.
 
-    One estimator (``est``, default a fresh ``for_torch_gpu()`` one)
-    serves every candidate, so its trace cache gives the
-    batch-independent optimizer phases to all but the first, and every
-    phase it traced before (``est.trace_phases`` ahead of the capacity)
-    to all. Returns ``(batch, gate)``; ``gate`` holds every candidate
-    tried, the admitting report, the CPU seconds and the trace-cache
-    counts, or ``(None, gate)`` when no candidate fits."""
+    Every candidate is decided through one admission service
+    (``service``, default ``gate_service(est)``: estimators over
+    ``est``'s trace cache, a fresh ``for_torch_gpu()`` one's without
+    ``est``), so the cache gives the batch-independent optimizer phases
+    to all but the first candidate, and every phase traced before
+    (``est.trace_phases`` ahead of the capacity) to all. Returns
+    ``(batch, gate)``; ``gate`` holds every candidate tried (with its
+    decision's ``source`` and ``rung``), the admitting report and
+    decision, the CPU seconds and the trace cache's counts, or
+    ``(None, gate)`` when no candidate fits."""
     if capacity is None:
         capacity = device_capacity()
-    est = est or XMemEstimator.for_torch_gpu()
+    if service is None:
+        service = gate_service(est)
     gate: dict = {"capacity": capacity, "candidates": []}
     t0 = time.perf_counter()
     batch = None
     for b in candidates:
         if b % policy.microbatches:
             continue
-        ok, rep = admission_check(cfg, policy, smoke_shape(seq_len, b),
-                                  capacity, est)
+        ok, rep, decision = admission_check(
+            cfg, policy, smoke_shape(seq_len, b), capacity,
+            service=service, return_decision=True)
         gate["candidates"].append(
-            {"batch": b, "estimate": rep.peak_bytes,
-             "tensor": rep.peak_tensor_bytes, "oom": rep.oom, "fits": ok})
+            {"batch": b, "estimate": decision.peak_bytes,
+             "tensor": decision.peak_tensor_bytes,
+             "oom": rep.oom if rep is not None else None, "fits": ok,
+             **gate_provenance(decision)})
         if ok:
             batch = b
-            gate.update(batch=b, report=rep)
+            gate.update(batch=b, report=rep, decision=decision)
             break
     gate["seconds"] = time.perf_counter() - t0
-    gate["trace_cache"] = {"hits": est.trace_cache.hits,
-                           "misses": est.trace_cache.misses}
+    gate["trace_cache"] = {"hits": service.cache.hits,
+                           "misses": service.cache.misses}
     return batch, gate
 
 

@@ -370,3 +370,56 @@ def test_sweep_admitted_batch_trains_within_tolerance_on_the_card():
           f"{got.allocated}")
     assert all(math.isfinite(x) for x in got.out.losses)
     assert abs(rel) <= 0.05
+
+
+@pytest.mark.gpu
+def test_admission_service_store_and_training_on_the_card(tmp_path):
+    # qwen3-32b's full width, two layers, a 8192-token vocabulary, AdamW
+    # with clipping, sequences of 1024: the training gate through an
+    # admission service over a persistent trace store admits a batch at
+    # the card's capacity; a second service over the same directory
+    # answers it from disk with the same bytes; the batch trains 3 steps
+    # and its reserved peak is held to chip_smoke's RESERVED_TOL (5 %)
+    # against the decision. Run it in a pytest process of its own
+    # (-k admission_service), as a training job has one
+    _need_card()
+    import math
+
+    from repro_torch.configs.base import smoke_shape
+    from repro_torch.core.baselines.directprobe import measured_training
+    from repro_torch.launch import train as ttrain
+    from repro_torch.service import AdmissionService
+    from repro_torch.train import (SyntheticDataset, TrainPolicy,
+                                   make_estimator_hooks)
+    cfg = dataclasses.replace(treg.get_config("qwen3-32b"), n_layers=2,
+                              vocab=8192)
+    policy = TrainPolicy()
+    capacity = tserve.device_capacity()
+    store = str(tmp_path / "store")
+    batch, gate = ttrain.pick_train_batch(
+        cfg, policy, 1024, capacity, (8, 4, 2, 1),
+        service=AdmissionService(workers=1, store_dir=store))
+    assert batch is not None
+    decision = gate["decision"]
+    assert decision.admit and decision.rung == "exact"
+    shape = smoke_shape(1024, batch)
+    ok, _, again = ttrain.admission_check(
+        cfg, policy, shape, capacity,
+        service=AdmissionService(workers=1, store_dir=store),
+        return_decision=True)
+    assert ok and again.provenance["source"] == "disk"
+    assert again.provenance["trace_cache"]["misses"] == 0
+    for f in ("peak_bytes", "peak_tensor_bytes", "persistent_bytes"):
+        assert getattr(again, f) == getattr(decision, f), f
+    fwd_bwd, update, opt_init = make_estimator_hooks(cfg, policy)
+    ds = SyntheticDataset(cfg, shape)
+    torch.cuda.empty_cache()
+    got = measured_training(fwd_bwd, update, opt_init,
+                            TM.init_params(cfg, 0, device="cuda"),
+                            lambda step: ds.device_batch(step, "cuda"), 3)
+    rel = (decision.peak_bytes - got.reserved) / got.reserved
+    print(f"admission service batch {batch}: decision {decision.peak_bytes}"
+          f" ({again.provenance['source']} after the restart), measured "
+          f"reserved {got.reserved} ({rel:+.4%})")
+    assert all(math.isfinite(x) for x in got.out.losses)
+    assert abs(rel) <= 0.05

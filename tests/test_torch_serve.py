@@ -117,9 +117,15 @@ print("N", sum(n.startswith("repro_torch") for n in sys.modules))
 print("HAVE", sorted(n for n in sys.modules if n.startswith("repro_torch.")))
 """
 
-# the training, MoE, VLM/audio, baselines and sweep slices' modules,
-# which the walk above must have imported
+# the training, MoE, VLM/audio, baselines, sweep and admission-service
+# slices' modules, which the walk above must have imported
 _TRAINING_MODULES = (
+    "repro_torch.service", "repro_torch.service.admission",
+    "repro_torch.service.degrade", "repro_torch.service.faults",
+    "repro_torch.service.store", "repro_torch.service.cluster",
+    "repro_torch.launch.served", "repro_torch.launch.analytic",
+    "repro_torch.obs.metrics", "repro_torch.obs.audit",
+    "repro_torch.obs.ingest",
     "repro_torch.core.sweep", "repro_torch.launch.hillclimb",
     "repro_torch.obs.timeline",
     "repro_torch.core.analyzer", "repro_torch.core.cache",
