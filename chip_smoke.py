@@ -36,6 +36,13 @@ non-zero:
    composition at the admitted batch beside the card's decode peak, and
    ``serve_mix``: the request-driven gate (``pick_serving``) for the
    same requests, held to the sweep's row at its knobs to the byte;
+   then ``serve_plan``, in a process of its own on the training jobs'
+   cores that uses no card (``--serve-plan OUT``), started with
+   ``serve_mix``'s capacity: the remediation planner's serving search
+   for a burst of 2048 such requests at ``max_concurrent`` 2048 (page
+   size 16 and 64 x concurrency 1024, 512, 256 x 1- and 2-byte KV), held
+   to its trace budget, its best offer decided again to the byte; its
+   line is printed when the serving half ends;
 5. moe_layer — one phi3.5-moe MoE layer at full width: the card's
    allocator requests (with the ATen function that made each) against
    the trace's, for the serving forward and for a training forward and
@@ -95,7 +102,12 @@ non-zero:
    the gate's decision log; the tracer hanging past a 2 s deadline; no
    evidence, the analytic bound), each answer held to the card's truth
    there: no admitted batch may need more than its safe threshold, and
-   none the card cannot run may be admitted;
+   none the card cannot run may be admitted; and ``plan_offers``: the
+   remediation planner on the gate's rejection at batch 8 (batch,
+   microbatch and remat axes, host offload), every candidate listed,
+   each offer the port's step can run held to the card's truth at its
+   batch or, for the cheapest without one, run for 3 steps (batch 8 at
+   4 microbatches), each offer's request decided again to the byte;
 9a. dense_sgd_train — the same job with SGD (``--train dense_sgd``):
    the paper's optimizer axis, where DNNMem's estimate stays put;
 10. moe_train — the same in a child of its own (``--train moe``) for
@@ -242,6 +254,22 @@ DENSE_SWEEP_AHEAD = (1, 5, 2)
 SERVING_PAGES = (16, 64, 256)
 SERVING_CONCURRENCY = (0.5, 1, 2)
 SERVING_KV_BYTES = (1, 2)
+# the dense job's remediation search (``plan_offers``): its gate's
+# rejection at the first candidate searched over batch, microbatches,
+# remat and host offload; the microbatch candidates (the default grid:
+# the batch at 2 and 4 microbatches) traced ahead with the gate's
+PLAN_MICROBATCHES = (2, 4)
+PLAN_OFFLOAD_ACTIVATIONS = (0.5,)
+# the serving search (``serve_plan``, a process of its own): a burst of
+# SERVE_PLAN_REQUESTS requests of PROMPT_LEN + DECODE_TOKENS positions,
+# all queued at tick 0 (a batch-inference job's prompts), at page 16,
+# 2-byte KV and max_concurrent SERVE_PLAN_REQUESTS: 138.5 GB of paged
+# KV at qwen3-32b's 32,768 B a token, which the card rejects; the
+# search's knob grid
+SERVE_PLAN_REQUESTS = 2048
+SERVE_PLAN_PAGES = (16, 64)
+SERVE_PLAN_CONCURRENCY = (1024, 512, 256)
+SERVE_PLAN_KV_BYTES = (1, 2)
 CKPT_JOB = "vlm"            # the job whose final state goes through a checkpoint
 # the job whose traces write through to a persistent trace store and
 # whose admitted batch the admission daemon answers over a socket, then
@@ -607,7 +635,7 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
                   n_layers: int | None = N_LAYERS, max_len: int = MAX_LEN,
                   prompt_len: int = PROMPT_LEN, candidates=(8, 4, 2, 1),
                   kernel_rows: bool = False,
-                  serving_sweep: bool = False) -> None:
+                  serving_sweep: bool = False, after_serve_mix=None) -> None:
     """The serving main path of ``arch`` at full width, ``n_layers``
     deep (``None``: the config's depth), prompts of ``prompt_len``
     positions into a cache of ``max_len``, the gate over
@@ -616,7 +644,9 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
     version at the admitted batch's prefill shape (``kernel`` phase),
     and its rows join ``rows``; with ``serving_sweep`` the served
     decode is set beside the request-driven estimate's knob grid
-    (``phase_serving_sweep``)."""
+    (``phase_serving_sweep``), then the request-driven gate
+    (``phase_serve_mix``), after which ``after_serve_mix`` is called
+    with the capacity the gates used."""
     import torch
     from repro_torch.core.estimator import XMemEstimator
     from repro_torch.kernels import flash_attention as fa
@@ -745,6 +775,8 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
         at = phase_serving_sweep(cfg, batch, max_len, prompt_len, capacity,
                                  res.peaks["decode"])
         phase_serve_mix(cfg, batch, max_len, prompt_len, capacity, at)
+        if after_serve_mix is not None:
+            after_serve_mix(capacity)
     del res
     torch.cuda.empty_cache()
     phase_requests(cfg, params, batch, prefix, max_len, prompt_len, est,
@@ -1293,6 +1325,18 @@ def phase_train(job: str, rows_path: str) -> None:
         fwd_s[b] = time.perf_counter() - t0
         est.trace_phases(fwd_bwd, params, specs, update, opt_init)
         trace_s[b] = time.perf_counter() - t0
+    plan_ahead_s = {}
+    if job == "dense":
+        # the remediation search's microbatch candidates at the gate's
+        # first batch: each a program of its own (f32 gradient sums)
+        specs = input_specs(cfg, smoke_shape(TRAIN_SEQ, candidates[0]))
+        for m in PLAN_MICROBATCHES:
+            t0 = time.perf_counter()
+            fwd_bwd, update, opt_init = make_estimator_hooks(
+                cfg, dataclasses.replace(policy, microbatches=m))
+            est.trace_phases(fwd_bwd, M.abstract_params(cfg), specs, update,
+                             opt_init)
+            plan_ahead_s[m] = time.perf_counter() - t0
     if sys.stdin.readline().strip() != "go":
         raise AssertionError(f"training job {job}: no turn on the card")
     memory = device_memory()
@@ -1389,6 +1433,8 @@ def phase_train(job: str, rows_path: str) -> None:
                        if not c["fits"]})
         phase_admission_degraded(cfg, policy, est, service, capacity,
                                  truths)
+        phase_plan_offers(cfg, policy, service, capacity, gate, truths,
+                          plan_ahead_s)
     if job == DAEMON_JOB:
         phase_admission_daemon(cfg, policy, est, store_dir, capacity, gate,
                                truth, truth_allocated, rel_reserved)
@@ -1737,6 +1783,243 @@ def phase_admission_degraded(cfg, policy, est, service, capacity: int,
                                    f"threads stranded")
 
 
+class _RecordingService:
+    """An admission service that keeps every decision by job id (the
+    planner's candidates, feasible or not)."""
+
+    def __init__(self, service):
+        self.service, self.decisions = service, {}
+        self.cache, self.obs = service.cache, service.obs
+
+    def decide(self, req):
+        d = self.service.decide(req)
+        self.decisions[req.job_id] = (req, d)
+        return d
+
+    def decide_sweep(self, reqs):
+        out = self.service.decide_sweep(reqs)
+        self.decisions.update((r.job_id, (r, d)) for r, d in zip(reqs, out))
+        return out
+
+
+def phase_plan_offers(cfg, policy, service, capacity: int, gate: dict,
+                      truths: dict, ahead_s: dict) -> None:
+    """The remediation planner on the dense job's rejection: the gate's
+    decision at its first candidate is the baseline of
+    ``RemediationPlanner.plan`` at the card's capacity over the default
+    batch, microbatch and remat axes and host offload (optimizer state,
+    and half the activations on top). Every candidate is listed with its
+    decision. Each offer the port's step can run (not offload, which
+    neither step executes) is held to the card: at a batch the card
+    measured at 1 microbatch (``truths``: the train run, DirectProbe's
+    probes) against that truth, and the cheapest runnable offer without
+    one run for ``TRAIN_STEPS`` steps (at most one run). Fails if an
+    offer ran out of memory on the card, reserved more than the
+    capacity, missed its truth by more than ``RESERVED_TOL``, if an
+    offer's ``admission_request`` decided again differs from it, or if
+    the search traced more than its microbatch and remat candidates."""
+    import math
+
+    import torch
+    from repro_torch.configs.base import smoke_shape
+    from repro_torch.launch import train as trn
+    from repro_torch.models import model as M
+    from repro_torch.plan import PlanSpace, RemediationPlanner
+
+    b0 = gate["candidates"][0]["batch"]
+    baseline = gate["decisions"][b0]
+    shape = smoke_shape(TRAIN_SEQ, b0)
+    space = PlanSpace(offload_opt_state=True,
+                      offload_activations=PLAN_OFFLOAD_ACTIVATIONS,
+                      max_offers=64)
+    recording = _RecordingService(service)
+    res = RemediationPlanner(recording).plan(
+        cfg, policy, shape, capacity=capacity, space=space,
+        job_id=f"{cfg.name}-plan", baseline=baseline)
+    candidates = []
+    for job_id, (req, d) in recording.decisions.items():
+        candidates.append({
+            "job_id": job_id, "admit": d.admit, "peak": d.peak_bytes,
+            "safe_threshold": d.safe_threshold, "source":
+                d.provenance["source"], "rung": d.rung,
+            "oom": d.report.oom if d.report is not None else None,
+            "space_peaks": d.breakdown.get("space_peaks"),
+            "offload": d.breakdown.get("offload")})
+    violations = []
+    rows, ran = [], False
+    for rank, o in enumerate(res.offers, 1):
+        again = service.decide(o.admission_request(cfg, policy, shape,
+                                                   capacity=capacity))
+        row = {"rank": rank, **o.to_json(),
+               "reproduced": again.admit and again.peak_bytes
+               == o.peak_bytes}
+        if not row["reproduced"]:
+            violations.append(f"offer {rank}: decided again "
+                              f"{again.admit} {again.peak_bytes}")
+        runnable = o.knob in ("batch", "microbatch", "remat")
+        truth = truths.get(o.global_batch) if o.microbatches == 1 \
+            and o.remat == cfg.remat else None
+        if not runnable:
+            row["card"] = "an estimate only: neither step executes host " \
+                "offload"
+        elif isinstance(truth, int):
+            row.update(card="measured before", truth=truth)
+        elif not ran:
+            ran = True
+            cfg2, pol2, shape2 = o.apply(cfg, policy, shape)
+            torch.cuda.empty_cache()
+            params = M.init_params(cfg2, 0, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                got = trn.train_loop(cfg2, shape2, pol2, steps=TRAIN_STEPS,
+                                     device="cuda", params=params)
+                truth = got.reserved
+                losses = got.out.losses
+                row.update(card="run here", truth=truth,
+                           allocated=got.allocated,
+                           losses=losses, step_ms=[x * 1e3 for x in
+                                                   got.out.step_s],
+                           run_s=time.perf_counter() - t0)
+                if not all(math.isfinite(x) for x in losses):
+                    violations.append(f"offer {rank}: loss {losses}")
+                del got
+            except torch.OutOfMemoryError as e:
+                row.update(card="out of memory",
+                           error=str(e).splitlines()[0])
+                violations.append(f"offer {rank} ran out of memory")
+                truth = None
+            del params
+            torch.cuda.empty_cache()
+        else:
+            row["card"] = "not run (one new run a search)"
+        if runnable and isinstance(truth, int):
+            rel = (o.peak_bytes - truth) / truth
+            row["rel_err_reserved"] = rel
+            if truth > capacity:
+                violations.append(f"offer {rank}: reserved {truth} > "
+                                  f"capacity {capacity}")
+            if abs(rel) > RESERVED_TOL:
+                violations.append(f"offer {rank}: {rel:+.4%} off the card")
+        rows.append(row)
+    singles = res.stats["axes"].get("microbatch", 0) \
+        + res.stats["axes"].get("remat", 0)
+    if res.stats["fresh_traces"] > singles:
+        violations.append(f"{res.stats['fresh_traces']} fresh traces for "
+                          f"{singles} microbatch and remat candidates")
+    if res.baseline.admit or not res.offers:
+        violations.append(f"no search: admit {res.baseline.admit}, "
+                          f"{len(res.offers)} offers")
+    emit("plan_offers", config=cfg.name, n_layers=cfg.n_layers,
+         seq_len=TRAIN_SEQ, batch=b0, capacity=capacity,
+         baseline={"peak": baseline.peak_bytes, "admit": baseline.admit,
+                   "oom": baseline.report.oom},
+         fresh_traces=res.stats["fresh_traces"],
+         baseline_traces=res.stats["baseline_traces"],
+         wall_s=res.stats["wall_s"], stats=res.stats,
+         traced_ahead_s={str(m): x for m, x in ahead_s.items()},
+         candidates=candidates, offers=rows,
+         truths={str(b): t for b, t in truths.items()},
+         violations=violations, memory=device_memory())
+    if violations:
+        raise AssertionError(f"plan_offers: {violations}")
+
+
+def phase_serve_plan(out_path: str) -> None:
+    """The serving remediation search, in a process of its own that
+    uses no card: it waits for a line ``go CAPACITY`` (the main
+    process's serving capacity, sent after ``serve_mix``), then runs
+    ``pick_serving`` for qwen3-32b's 8-layer serving cell on a burst of
+    ``SERVE_PLAN_REQUESTS`` requests at ``max_concurrent`` as many, page
+    16 and 2-byte KV, with the serving knob grid as its plan space. It
+    writes the ``serve_plan`` line's fields to ``out_path``, for the
+    main process to print. Fails if the search and its baseline traced
+    more than ``serving_trace_budget`` (1 + the grid's concurrencies),
+    if the best offer decided again through ``decide_serving`` with its
+    ``serving_knobs()`` differs from it, or if an offer's worst case is
+    over the capacity."""
+    from repro_torch.core.cache import TraceCache
+    from repro_torch.core.orchestrator import (RequestSpec, RequestStream,
+                                               ServingKnobs)
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import model as M
+    from repro_torch.plan import PlanSpace, serving_trace_budget
+    from repro_torch.service import AdmissionService
+
+    line = sys.stdin.readline().split()
+    if line[:1] != ["go"]:
+        raise AssertionError(f"serve_plan: no capacity ({line})")
+    capacity = int(line[1])
+    cfg = path_config("qwen3-32b", N_LAYERS, impl="flash")
+    stream = RequestStream(tuple(
+        RequestSpec(arrival_t=0, prompt_len=PROMPT_LEN,
+                    decode_len=DECODE_TOKENS)
+        for _ in range(SERVE_PLAN_REQUESTS)))
+    knobs = ServingKnobs(page_size=16, max_concurrent=SERVE_PLAN_REQUESTS,
+                         kv_dtype_bytes=2)
+    space = PlanSpace(page_sizes=SERVE_PLAN_PAGES,
+                      max_concurrents=SERVE_PLAN_CONCURRENCY,
+                      kv_dtypes=SERVE_PLAN_KV_BYTES)
+    budget = serving_trace_budget(space, knobs)
+    svc = AdmissionService(workers=1, cache=TraceCache())
+    t0 = time.perf_counter()
+    decision, gate = srv.pick_serving(cfg, stream, capacity, knobs=knobs,
+                                      space=space, max_len=MAX_LEN,
+                                      service=svc)
+    search_s = time.perf_counter() - t0
+    plan = decision.provenance.get("plan", {})
+    traces = decision.provenance["trace_cache"]["misses"] \
+        + plan.get("fresh_traces", 0)
+    offers = decision.counter_offers or []
+    violations = []
+    if decision.admit or not offers or "error" in plan:
+        violations.append(f"no offers: admit {decision.admit}, {plan}")
+    if traces > budget:
+        violations.append(f"{traces} traces over the budget {budget}")
+    over = [o.peak_bytes for o in offers if o.peak_bytes > capacity]
+    if over:
+        violations.append(f"offers over the capacity: {over}")
+    again = None
+    if offers:
+        best = offers[0]
+        k = best.serving_knobs()
+        t1 = time.perf_counter()
+        kv_tok = gate["kv_bytes_per_token"]
+        again = svc.decide_serving(
+            f"{cfg.name}-best-again", srv.make_decode_fn(cfg),
+            M.abstract_params(cfg),
+            M.init_cache(cfg, k.max_concurrent, MAX_LEN, device="meta"),
+            srv.decode_input(cfg, k.max_concurrent), capacity=capacity,
+            mix=stream, knobs=k, kv_bytes_per_token=kv_tok,
+            resident_bytes_per_request=gate["resident_bytes_per_request"])
+        again_s = time.perf_counter() - t1
+        if not (again.admit and again.peak_bytes == best.peak_bytes
+                and again.breakdown["serving"] == best.serving):
+            violations.append(f"best offer decided again: {again.admit} "
+                              f"{again.peak_bytes} vs {best.peak_bytes}")
+    Path(out_path).write_text(json.dumps({
+        "config": cfg.name, "n_layers": cfg.n_layers,
+        "requests": SERVE_PLAN_REQUESTS, "prompt_len": PROMPT_LEN,
+        "decode_tokens": DECODE_TOKENS, "arrival": "all at tick 0",
+        "capacity": capacity, "knobs": dataclasses.asdict(knobs),
+        "kv_bytes_per_token": gate["kv_bytes_per_token"],
+        "baseline": {"admit": decision.admit,
+                     "worst": decision.peak_bytes,
+                     "serving": gate["serving"]},
+        "trace_budget": budget, "traces": traces,
+        "baseline_traces": decision.provenance["trace_cache"]["misses"],
+        "stats": plan, "search_s": search_s,
+        "offers": [{"rank": i, **o.to_json()}
+                   for i, o in enumerate(offers, 1)],
+        "best_again": None if again is None else {
+            "admit": again.admit, "peak": again.peak_bytes,
+            "traces": again.provenance["trace_cache"]["misses"],
+            "seconds": again_s},
+        "violations": violations}))
+    if violations:
+        raise AssertionError(f"serve_plan: {violations}")
+
+
 def phase_admission_daemon(cfg, policy, est, store_dir: str, capacity: int,
                            gate: dict, reserved: int, allocated: int,
                            rel_reserved: float) -> None:
@@ -1747,8 +2030,9 @@ def phase_admission_daemon(cfg, policy, est, store_dir: str, capacity: int,
     "batch", "hbm_gib"}``); it must equal the gate's decision, from
     memory, with no trace. The wire's other kinds on the same connection:
     ``health``, ``metrics`` (JSON and Prometheus text, parsed back),
-    ``stats``, a malformed line and a ``plan`` request (structured
-    errors on a live connection). Then the daemon drains and stops, a
+    ``stats``, a malformed line (a structured error on a live
+    connection) and a ``plan`` request for the admitted batch (it
+    already fits: no offers, no trace). Then the daemon drains and stops, a
     second one starts over a fresh service on the same store directory,
     and the same request must come back with the same bytes from disk,
     with no trace. Last, the run's measured peaks go to the telemetry
@@ -1850,8 +2134,10 @@ def phase_admission_daemon(cfg, policy, est, store_dir: str, capacity: int,
             "xmem_service_requests_total"] == 1,
         "stats": stats.get("stats", {}).get("requests_served") == 1,
         "malformed": bad.get("kind") == "error" and not bad["ok"],
-        "plan_not_ported": plan.get("kind") == "error"
-        and "slice 10" in plan.get("error", ""),
+        "plan_already_fits": plan.get("ok") and plan.get("admit")
+        and plan.get("counter_offers") == []
+        and plan["stats"]["already_fits"]
+        and plan["stats"]["baseline_traces"] == 0,
         "residual_is_train_error": residual == reserved
         - decision.peak_bytes and residual_rel == rel_reserved,
     }
@@ -2048,6 +2334,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--train"] and len(sys.argv) == 4:
         phase_train(sys.argv[2], sys.argv[3])
         return 0
+    if sys.argv[1:2] == ["--serve-plan"] and len(sys.argv) == 3:
+        phase_serve_plan(sys.argv[2])
+        return 0
     # each training job gets a process of its own, as it would: a fresh
     # allocator whose first iteration makes cuBLAS's workspaces. They
     # start now and trace their gates on the CPU while this process
@@ -2066,6 +2355,19 @@ def main() -> int:
             stdin=subprocess.PIPE, text=True)
         if mine:
             os.sched_setaffinity(jobs[job].pid, theirs)
+    # the serving remediation search needs no card: a process of its own
+    # on the training jobs' cores, started with the serving capacity once
+    # serve_mix has read it, while this process serves the other models
+    serve_plan_out = rows_dir / "serve_plan.json"
+    serve_plan = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--serve-plan",
+         str(serve_plan_out)], stdin=subprocess.PIPE, text=True)
+    if mine:
+        os.sched_setaffinity(serve_plan.pid, theirs)
+
+    def start_serve_plan(capacity: int) -> None:
+        serve_plan.stdin.write(f"go {capacity}\n")
+        serve_plan.stdin.close()
     if mine:
         for tid in os.listdir("/proc/self/task"):
             os.sched_setaffinity(int(tid), mine)
@@ -2075,7 +2377,8 @@ def main() -> int:
         info = phase_device()
         phase_build()
         rows = phase_kernels()
-        phase_serving(rows, "qwen3-32b", serving_sweep=True)
+        phase_serving(rows, "qwen3-32b", serving_sweep=True,
+                      after_serve_mix=start_serve_plan)
         phase_moe_layer()
         phase_attention_layer()
         phase_serving(rows, MOE_ARCH, "moe_")
@@ -2089,6 +2392,10 @@ def main() -> int:
                           kernel_rows=arch == HYBRID_ARCH)
         # this process keeps only its context and workspace on the card
         torch.cuda.empty_cache()
+        if serve_plan.wait(timeout=600) != 0:
+            raise AssertionError(f"serve_plan failed: exit "
+                                 f"{serve_plan.returncode}")
+        emit("serve_plan", **json.loads(serve_plan_out.read_text()))
         for job, child in jobs.items():
             if child.poll() is None:        # still waiting for its turn
                 child.stdin.write("go\n")
@@ -2101,7 +2408,7 @@ def main() -> int:
                           for job in TRAIN_JOBS if job not in GATE_ONLY},
                          info)
     finally:
-        for child in jobs.values():
+        for child in (*jobs.values(), serve_plan):
             if child.poll() is None:
                 child.kill()
                 child.wait()

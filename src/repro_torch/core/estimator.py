@@ -22,8 +22,22 @@ decode step with a persistent KV cache; ``estimate_request_stream``
 composes a decode step's working set with a paged-KV request stream
 (``ServingEstimate``).
 
-Not ported (ROADMAP Queue 1): the frozen seed pipeline
-(``fastpath=False``), host offload, collectives and sharding.
+Host offload (``OrchestratorPolicy.offload``, an ``OffloadPlan``) is a
+separate pass after the orchestrator's: the concretely composed
+iterations' optimizer state and a fraction of their saved activations
+move to a host space, device staging copies cover the transfers, and
+the replay runs per memory space (``breakdown["space_peaks"]``,
+``breakdown["offload"]``); the capacity verdict and the phase breakdown
+are the device's. Neither the port's step nor the reference's executes
+host offload: an offloaded estimate is a plan's, not a run's.
+
+``fastpath=False`` is the frozen reference pipeline: no trace cache,
+lifecycles re-derived from the event stream, every iteration composed
+concretely, the orchestrator's passes one by one, the object replay
+engine. The fast path must match it on every estimate field
+(``tests/test_torch_offload.py``); it rejects host offload, as the
+reference does. ``calibrate`` fits the transient scale from measured
+peaks. Not ported (slice 11): collectives and sharding.
 """
 from __future__ import annotations
 
@@ -31,18 +45,20 @@ import dataclasses
 import time
 from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
 from ..obs import spans as obs_spans
 from .allocator import AllocatorPolicy, CUDA_CACHING, CUDA_CACHING_TORCH
-from .analyzer import classify_blocks
+from .analyzer import classify_blocks, phase_peaks, reconstruct_lifecycles
 from .cache import BlockInfo, TraceCache, TracedPhase, trace_key
-from .events import (BlockKind, BlockLifecycle, PeriodicBlocks, Phase,
-                     periodic_breakdown_peaks_fast, reduced_for_breakdown)
+from .events import (BlockKind, BlockLifecycle, MemorySpace, PeriodicBlocks,
+                     Phase, peak_live_bytes, periodic_breakdown_peaks_fast,
+                     reduced_for_breakdown)
 from .orchestrator import (ContinuousBatchingScheduler, MemoryOrchestrator,
                            OrchestratorPolicy, ServingKnobs)
-from .simulator import MemorySimulator, SimResult
+from .simulator import MemorySimulator, SimResult, split_blocks_by_space
 from .tracer import trace_fn
 
 #: bytes of the workspace cuBLAS gets from the caching allocator for each
@@ -51,6 +67,24 @@ from .tracer import trace_fn
 CUBLAS_WORKSPACE_BYTES = 32 << 20
 _MATMULS = frozenset({"aten::mm", "aten::addmm", "aten::bmm",
                       "aten::baddbmm"})
+#: ids of the workspace blocks: below the orchestrator's upcast
+#: (-100000) and offload (-200000 down) namespaces, so an offloaded
+#: composition's staging copies never share an id with a workspace
+_WORKSPACE_BID = -300_000
+
+
+def calibration_scale(pairs, quantile: float = 0.9) -> float:
+    """The transient scale ``calibrate`` fits from ``(report, truth)``
+    pairs: the ``quantile`` of measured over estimated transient bytes
+    (peak tensor bytes above the persistent ones), 1.0 without a usable
+    pair."""
+    ratios = []
+    for rep, truth in pairs:
+        t_est = rep.peak_tensor_bytes - rep.persistent_bytes
+        t_true = truth - rep.persistent_bytes
+        if t_est > 0 and t_true > 0:
+            ratios.append(t_true / t_est)
+    return float(np.quantile(ratios, quantile)) if ratios else 1.0
 
 
 def flatten_kinds(args_with_kinds: Sequence[tuple]
@@ -63,6 +97,14 @@ def flatten_kinds(args_with_kinds: Sequence[tuple]
         kinds.extend([kind] * len(leaves))
         scopes.extend([f"{name}[{i}]" for i in range(len(leaves))])
     return flat_args, kinds, scopes
+
+
+def _fwd_out_kinds(out) -> list[BlockKind]:
+    """A forward+backward's output kinds: the loss leaves ``OUTPUT``,
+    the gradients ``GRAD``."""
+    n_out = len(pytree.tree_leaves(out))
+    n_loss = len(pytree.tree_leaves(out[0])) if isinstance(out, tuple) else 1
+    return [BlockKind.OUTPUT] * n_loss + [BlockKind.GRAD] * (n_out - n_loss)
 
 
 def _to_meta(tree):
@@ -103,8 +145,10 @@ class XMemEstimator:
                  capacity: int = 1 << 62,
                  trace_cache: TraceCache | None = None,
                  cublas_workspace: int = 0,
-                 checkpoint: Callable[[str], None] | None = None):
+                 checkpoint: Callable[[str], None] | None = None,
+                 fastpath: bool = True):
         self.allocator_policy = allocator_policy
+        self.fastpath = fastpath
         self.cublas_workspace = cublas_workspace
         self.orchestrator = MemoryOrchestrator(
             orchestrator_policy or OrchestratorPolicy())
@@ -148,19 +192,41 @@ class XMemEstimator:
             orchestrator_policy=self.orchestrator.policy,
             iterations=self.iterations, capacity=self.capacity,
             trace_cache=trace_cache,
-            cublas_workspace=self.cublas_workspace)
+            cublas_workspace=self.cublas_workspace, fastpath=self.fastpath)
+
+    def calibrate(self, samples: Sequence[tuple],
+                  quantile: float = 0.9) -> float:
+        """Fit the transient scale from ``((fwd_bwd, params, batch,
+        update_fn, opt_init_fn), truth_bytes)`` samples: the explicit
+        form of the paper's calibration loop, one constant per backend
+        (``calibration_scale`` over each sample's estimate). The
+        ``quantile`` skews high because an underestimate (an OOM) costs
+        a scheduler more than headroom does. Returns the scale, also
+        set on this estimator's orchestrator policy."""
+        pairs = []
+        for (fwd_bwd, params, batch, update_fn, opt_init_fn), truth \
+                in samples:
+            pairs.append((self.estimate_training(
+                fwd_bwd, params, batch, update_fn=update_fn,
+                opt_init_fn=opt_init_fn), truth))
+        scale = calibration_scale(pairs, quantile)
+        self.orchestrator.policy = dataclasses.replace(
+            self.orchestrator.policy, transient_scale=scale)
+        return scale
 
     # -- phase tracing (cached) -------------------------------------------
     def _trace_phase(self, fn, args_with_kinds, phase,
                      out_kind_fn: Callable | None = None, tag: str = "",
-                     grad: bool = False) -> TracedPhase:
+                     grad: bool = False, cached: bool = True) -> TracedPhase:
         flat, kinds, scopes = flatten_kinds(args_with_kinds)
         specs = [pytree.tree_structure(t) for t, _, _ in args_with_kinds]
-        cache = self.trace_cache
-        key = trace_key(fn, tag, flat, tuple(specs), kinds, phase)
-        hit = cache.get(fn, key)
-        if hit is not None:
-            return hit
+        cache = self.trace_cache if cached else None
+        key = None
+        if cache is not None:
+            key = trace_key(fn, tag, flat, tuple(specs), kinds, phase)
+            hit = cache.get(fn, key)
+            if hit is not None:
+                return hit
         if self.checkpoint is not None:
             self.checkpoint("tracer")
         counts = [spec.num_leaves for spec in specs]
@@ -183,7 +249,8 @@ class XMemEstimator:
             output_blocks=tuple(BlockInfo(b.bid, b.size, b.kind, b.shape)
                                 for b in tr.output_blocks),
             out_shape=_to_meta(out), arg_leaf_counts=tuple(counts))
-        cache.put(fn, key, entry)
+        if cache is not None:
+            cache.put(fn, key, entry)
         return entry
 
     # -- periodic composition ---------------------------------------------
@@ -301,7 +368,8 @@ class XMemEstimator:
                         default=None)
             if first is not None:
                 out.append(BlockLifecycle(
-                    -200_000 - len(out), self.cublas_workspace, first, None,
+                    _WORKSPACE_BID - len(out), self.cublas_workspace, first,
+                    None,
                     0, Phase.FORWARD_BACKWARD, "cublas_workspace", scope,
                     BlockKind.TEMP))
         return out
@@ -317,6 +385,14 @@ class XMemEstimator:
         ``batch`` are pytrees of tensors of any device (``meta`` ones
         allocate nothing): only shapes and dtypes are read."""
         t0 = time.perf_counter()
+        if not self.fastpath:
+            policy_before = self.orchestrator.policy
+            try:
+                return self._estimate_training_reference(
+                    fwd_bwd_fn, params, batch, update_fn, opt_init_fn,
+                    capacity, t0)
+            finally:
+                self.orchestrator.policy = policy_before
         cache = self.trace_cache
         h0, m0 = cache.hits, cache.misses
         fwd, upd, init = self.trace_phases(fwd_bwd_fn, params, batch,
@@ -336,19 +412,12 @@ class XMemEstimator:
         trace: the sweep service enters here with an interpolated
         forward phase and still gets the optimizer phases resolved
         (normally cache hits: they do not depend on the batch)."""
-        def fwd_out_kinds(out):
-            n_out = len(pytree.tree_leaves(out))
-            n_loss = len(pytree.tree_leaves(out[0])) \
-                if isinstance(out, tuple) else 1
-            return [BlockKind.OUTPUT] * n_loss + \
-                   [BlockKind.GRAD] * (n_out - n_loss)
-
         if fwd is None:
             fwd = self._trace_phase(
                 fwd_bwd_fn,
                 [(params, BlockKind.PARAM, "params"),
                  (batch, BlockKind.INPUT, "batch")],
-                Phase.FORWARD_BACKWARD, out_kind_fn=fwd_out_kinds,
+                Phase.FORWARD_BACKWARD, out_kind_fn=_fwd_out_kinds,
                 tag="fwd", grad=True)
         init = upd = None
         opt_state = None
@@ -394,9 +463,6 @@ class XMemEstimator:
         if self.checkpoint is not None:
             self.checkpoint("replay")
         policy = self.orchestrator.policy
-        if policy.offload is not None and policy.offload.enabled:
-            raise NotImplementedError(
-                "host offload is not ported (ROADMAP Queue 1)")
         # --- stage 2+3: analyze & compose iterations (periodic) ---
         pb, meta = self._compose_periodic(fwd, upd, init)
         concrete = pb.prefix + pb.cycle + pb.suffix
@@ -420,6 +486,15 @@ class XMemEstimator:
             update_start=meta["update_start"],
             next_bwd_start=meta["update_start"],
             num_iterations=self.iterations)
+        # host offload, a separate pass: only the concretely composed
+        # iterations get staging blocks (update_start's synthetic
+        # template key is a release marker, not an iteration)
+        offload_stats = None
+        if policy.offload is not None and policy.offload.enabled:
+            us_concrete = {it: t for it, t in meta["update_start"].items()
+                           if it in meta["bwd_start"]}
+            concrete, offload_stats = self.orchestrator.apply_offload(
+                concrete, us_concrete, meta["iteration_ends"])
 
         # --- stage 5: simulate ---
         num_events = (len(fwd.trace.events)
@@ -446,21 +521,196 @@ class XMemEstimator:
             for b in concrete
             if b.free_t is None and b.block_kind in (
                 BlockKind.PARAM, BlockKind.OPT_STATE))
+        # under offload the per-phase breakdown describes the device
+        # composition, the one the capacity verdict is about
+        bd_pb = pb
+        if offload_stats is not None:
+            bd_pb = split_blocks_by_space(pb).get(
+                MemorySpace.DEVICE_HBM,
+                PeriodicBlocks([], [], pb.n_cycles, pb.period, [],
+                               dict(pb.meta)))
         liveness_peak, phase_pk = periodic_breakdown_peaks_fast(
-            reduced_for_breakdown(pb))
+            reduced_for_breakdown(bd_pb))
+        breakdown = {"phase_peaks": phase_pk,
+                     "num_blocks": pb.num_blocks,
+                     "liveness_peak": liveness_peak}
+        if offload_stats is not None:
+            breakdown["space_peaks"] = sim.stats.get("space_peaks", {})
+            breakdown["offload"] = offload_stats
         return EstimateReport(
             peak_bytes=sim.peak_reserved,
             peak_tensor_bytes=sim.peak_allocated,
             persistent_bytes=persistent,
             oom=sim.oom,
             sim=sim,
-            breakdown={"phase_peaks": phase_pk,
-                       "num_blocks": pb.num_blocks,
-                       "liveness_peak": liveness_peak},
+            breakdown=breakdown,
             wall_time_s=time.perf_counter() - t0,
             num_events=num_events,
             cache_stats=cache_stats,
             composition=pb,
+            sim_unbounded=(capacity or self.capacity) >= (1 << 62))
+
+    # -- the frozen reference pipeline (fastpath=False) ----------------------
+    def _compose_reference(self, fwd: TracedPhase, upd: TracedPhase | None,
+                           init: TracedPhase | None
+                           ) -> tuple[list[BlockLifecycle], dict]:
+        """Every iteration composed concretely, each placement
+        re-deriving its lifecycles from the phase's event stream."""
+        blocks: list[BlockLifecycle] = []
+        cursor = 0
+        iteration_ends: dict[int, int] = {}
+        update_start: dict[int, int] = {}
+        bwd_start: dict[int, int] = {}
+        next_bid = [0]
+
+        def fresh_bid():
+            next_bid[0] += 1
+            return next_bid[0]
+
+        def place(entry: TracedPhase, it, phase, output_kind=None):
+            nonlocal cursor
+            input_bids = {b.bid for b in entry.input_blocks}
+            output_bids = {b.bid for b in entry.output_blocks}
+            placed = []
+            for lc in reconstruct_lifecycles(entry.trace):
+                if lc.block_id in input_bids:
+                    continue
+                kind = lc.block_kind
+                if lc.block_id in output_bids and output_kind is not None:
+                    kind = output_kind
+                free_t = lc.free_t + cursor if lc.free_t is not None else None
+                placed.append(dataclasses.replace(
+                    lc, block_id=fresh_bid(), alloc_t=lc.alloc_t + cursor,
+                    free_t=free_t, iteration=it, phase=phase,
+                    block_kind=kind))
+            cursor += len(entry.trace.events) + 1
+            return placed
+
+        for b in fwd.input_blocks:
+            if b.kind is BlockKind.PARAM and b.size > 0:
+                blocks.append(BlockLifecycle(
+                    fresh_bid(), b.size, 0, None, 0, Phase.INIT,
+                    "init", "params", BlockKind.PARAM, 1.0, b.shape))
+        cursor += 1
+        for it in range(self.iterations):
+            for b in fwd.input_blocks:
+                if b.kind is BlockKind.INPUT and b.size > 0:
+                    blocks.append(BlockLifecycle(
+                        fresh_bid(), b.size, cursor, None, it, Phase.DATA,
+                        "host_to_device", "batch", BlockKind.INPUT,
+                        1.0, b.shape))
+            cursor += 1
+            bwd_start[it] = cursor
+            blocks.extend(place(fwd, it, Phase.FORWARD_BACKWARD))
+            update_start[it] = cursor
+            if it == 0 and init is not None:
+                # optimizer state materializes at the first update
+                blocks.extend(place(init, it, Phase.OPTIMIZER,
+                                    output_kind=BlockKind.OPT_STATE))
+            if upd is not None:
+                blocks.extend(place(upd, it, Phase.OPTIMIZER,
+                                    output_kind=BlockKind.OUTPUT))
+            iteration_ends[it] = cursor
+        bwd_start[self.iterations] = cursor + 1  # sentinel for last grads
+        meta = dict(iteration_ends=iteration_ends, update_start=update_start,
+                    bwd_start=bwd_start, horizon=cursor + 2)
+        return blocks, meta
+
+    def _estimate_training_reference(self, fwd_bwd_fn, params, batch,
+                                     update_fn, opt_init_fn, capacity,
+                                     t0) -> EstimateReport:
+        """The reference pipeline: uncached traces, a concrete
+        N-iteration composition, the frozen classifier, the
+        orchestrator's passes one by one, the object replay engine over
+        every event. The fast path matches it on every estimate field."""
+        opolicy = self.orchestrator.policy
+        if opolicy.offload is not None and opolicy.offload.enabled:
+            raise NotImplementedError(
+                "host offload needs the fast path (fastpath=True): the "
+                "reference pipeline is frozen and has no multi-space "
+                "replay")
+        fwd = self._trace_phase(
+            fwd_bwd_fn,
+            [(params, BlockKind.PARAM, "params"),
+             (batch, BlockKind.INPUT, "batch")],
+            Phase.FORWARD_BACKWARD, out_kind_fn=_fwd_out_kinds,
+            tag="fwd", grad=True, cached=False)
+        init = upd = None
+        opt_state = None
+        if opt_init_fn is not None:
+            init = self._trace_phase(
+                opt_init_fn, [(params, BlockKind.PARAM, "params")],
+                Phase.OPTIMIZER,
+                out_kind_fn=lambda s: [BlockKind.OPT_STATE] * len(
+                    pytree.tree_leaves(s)),
+                tag="init", cached=False)
+            opt_state = init.out_shape
+        if update_fn is not None:
+            out = fwd.out_shape
+            grads = out[1] if isinstance(out, tuple) else out
+            upd_args = [(params, BlockKind.PARAM, "params"),
+                        (grads, BlockKind.GRAD, "grads")]
+            if opt_state is not None:
+                upd_args.append((opt_state, BlockKind.OPT_STATE, "opt_state"))
+            upd = self._trace_phase(update_fn, upd_args, Phase.OPTIMIZER,
+                                    tag="upd", cached=False)
+
+        blocks, meta = self._compose_reference(fwd, upd, init)
+        param_sizes = frozenset(
+            b.size for b in fwd.input_blocks if b.kind is BlockKind.PARAM)
+        # frozen classifier: the reference must not drift as the shared
+        # analyzer changes (same output as ``classify_blocks``)
+        classified = []
+        for b in blocks:
+            kind = b.block_kind
+            if kind in (BlockKind.ACTIVATION, BlockKind.TEMP):
+                in_bwd = any(m in b.scope for m in ("transpose", "backward"))
+                if in_bwd and b.size in param_sizes:
+                    kind = BlockKind.GRAD
+            classified.append(dataclasses.replace(b, block_kind=kind))
+        blocks = classified
+        if self.cublas_workspace:
+            blocks += self._cublas_workspaces(
+                [b for b in blocks if b.iteration == 0])
+
+        o = self.orchestrator
+        if o.policy.grad_release == "auto":
+            o.policy = dataclasses.replace(o.policy,
+                                           grad_release="after_update")
+        blocks = o.fold_fused(blocks)
+        blocks = o.mark_persistent(blocks)
+        blocks = o.batch_per_iteration(blocks, meta["iteration_ends"])
+        blocks = o.release_gradients(blocks, meta["update_start"],
+                                     meta["update_start"],
+                                     meta["iteration_ends"])
+        blocks = o.inject_optimizer_upcasts(blocks, meta["update_start"],
+                                            meta["iteration_ends"])
+        blocks = o.apply_donation(blocks)
+        if o.policy.release_outputs_next_iter:
+            blocks = o.release_step_outputs(blocks, meta["iteration_ends"])
+        blocks = o.apply_transient_scale(blocks)
+
+        if self.checkpoint is not None:
+            self.checkpoint("replay")
+        sim = MemorySimulator(self.allocator_policy,
+                              capacity or self.capacity).replay(blocks)
+        persistent = sum(b.sharded_size for b in blocks if b.free_t is None
+                         and b.block_kind in (BlockKind.PARAM,
+                                              BlockKind.OPT_STATE))
+        return EstimateReport(
+            peak_bytes=sim.peak_reserved,
+            peak_tensor_bytes=sim.peak_allocated,
+            persistent_bytes=persistent,
+            oom=sim.oom,
+            sim=sim,
+            breakdown={"phase_peaks": phase_peaks(blocks),
+                       "num_blocks": len(blocks),
+                       "liveness_peak": peak_live_bytes(blocks)},
+            wall_time_s=time.perf_counter() - t0,
+            num_events=(len(fwd.trace.events)
+                        + (len(upd.trace.events) if upd else 0)
+                        + (len(init.trace.events) if init else 0)),
+            composition=blocks,
             sim_unbounded=(capacity or self.capacity) >= (1 << 62))
 
     # -- capacity probing ---------------------------------------------------
@@ -477,9 +727,17 @@ class XMemEstimator:
                 opt_init_fn=opt_init_fn)
         probe = (report.sim if report.sim_unbounded and not report.sim.oom
                  else None)
+        # under offload the question is about the device's memory only;
+        # the probe stays valid: ``replay_spaces``' primary result is
+        # the device sub-composition's replay
+        comp = report.composition
+        groups = split_blocks_by_space(comp)
+        if len(groups) > 1:
+            comp = groups.get(MemorySpace.DEVICE_HBM, [])
+        engine = "columnar" if self.fastpath else "object"
         return MemorySimulator(self.allocator_policy, 1 << 62,
-                               engine="columnar").min_feasible_capacity(
-            report.composition, probe=probe)
+                               engine=engine).min_feasible_capacity(
+            comp, probe=probe)
 
     def estimate_serving(self, step_fn: Callable, params, cache, batch,
                          capacity: int | None = None) -> EstimateReport:

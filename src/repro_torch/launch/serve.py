@@ -18,8 +18,8 @@ restarts:
 * ``pick_serving`` — the request-driven gate (``--serve-mix``): a
   continuous-batching runtime over a ``RequestMix`` (paged KV cache,
   prefix sharing, speculative scratch) gated on the worst-case peak of
-  the scripted timeline. Serving counter-offers (``--plan``) need the
-  remediation planner, which is not ported (slice 10).
+  the scripted timeline; with ``--plan`` a rejection comes back with
+  the remediation planner's ranked serving counter-offers.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \
       --n-layers 8 --max-len 2064 --tokens 16
@@ -32,6 +32,9 @@ restarts:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \
       --smoke --device cpu --capacity-gib 0.25 \
       --serve-mix 48:16:8,16:48:8 --max-concurrent 8 --page-size 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \
+      --smoke --device cpu --capacity-gib 0.04 \
+      --serve-mix 48:16:8,16:48:8 --max-concurrent 8 --plan
 
 ``--max-len`` counts every position of the cache: a VLM's patches, the
 prompt and the decoded tokens.
@@ -245,13 +248,12 @@ def pick_serving(cfg, mix, capacity: int, *, knobs=None, space=None,
     times the batch-1 trace's transient is 110,477,312 B where the
     batch-8 trace's is 177,967,104 B. Traced at the concurrency, the
     gate's step is the one the server runs, and repeated gates at one
-    concurrency share the cached trace. ``space`` (serving
-    counter-offers) needs the remediation planner and raises."""
-    if space is not None:
-        raise NotImplementedError(
-            "serving counter-offers (pick_serving(space=...)) need the "
-            "remediation planner, which is not ported yet (slice 10 of "
-            "the port)")
+    concurrency share the cached trace. With ``space`` (a
+    :class:`~repro_torch.plan.PlanSpace` with serving axes) a rejection
+    comes back with ``decision.counter_offers``; each candidate's
+    decode step is traced at its own concurrency, so the search costs
+    at most 1 + the grid's distinct concurrencies traces
+    (``repro_torch.plan.serving_trace_budget``)."""
     svc = _gate_service(service, store_dir)
     knobs = knobs or ServingKnobs()
     stream = mix.stream() if hasattr(mix, "stream") else mix
@@ -260,12 +262,23 @@ def pick_serving(cfg, mix, capacity: int, *, knobs=None, space=None,
     kv_tok, resident = serving_cache_profile(cfg, max_len)
     params = M.abstract_params(cfg)
     decode_fn = make_decode_fn(cfg)
-    b = knobs.max_concurrent
-    cache = M.init_cache(cfg, b, max_len, device="meta")
+
+    def step_inputs(b):
+        return M.init_cache(cfg, b, max_len, device="meta"), \
+            decode_input(cfg, b)
+    cache, batch = step_inputs(knobs.max_concurrent)
+    plan = None
+    if space is not None:
+        from ..plan import ServingPlanContext
+        plan = ServingPlanContext(
+            decode_fn, params, cache, batch, mix, knobs=knobs,
+            kv_bytes_per_token=kv_tok, resident_bytes_per_request=resident,
+            space=space, step_inputs=step_inputs)
     decision = svc.decide_serving(
-        f"{cfg.name}-mix", decode_fn, params, cache, decode_input(cfg, b),
+        f"{cfg.name}-mix", decode_fn, params, cache, batch,
         capacity=capacity, mix=mix, knobs=knobs,
-        kv_bytes_per_token=kv_tok, resident_bytes_per_request=resident)
+        kv_bytes_per_token=kv_tok, resident_bytes_per_request=resident,
+        plan=plan)
     gate = {"serving": decision.breakdown.get("serving", {}),
             "kv_bytes_per_token": kv_tok,
             "resident_bytes_per_request": resident,
@@ -351,21 +364,28 @@ def serve(cfg, batch: int, max_len: int, prompt_len: int, tokens: int,
 
 def serve_mix_main(cfg, args, capacity: int, service=None) -> int:
     """``--serve-mix`` entry: the request-driven gate for the mix and
-    knobs of ``args`` at ``capacity`` bytes; exits 0 when it admits, 2
-    when it rejects."""
-    if args.plan:
-        raise NotImplementedError(
-            "--plan (serving counter-offers) needs the remediation "
-            "planner, which is not ported yet (slice 10 of the port)")
+    knobs of ``args`` at ``capacity`` bytes, with ``--plan`` the ranked
+    serving counter-offers of a rejection (page sizes 8/16/32, half,
+    the same and twice the concurrency, 1- and 2-byte KV); exits 0 when
+    it admits, 2 when it rejects."""
     mix = parse_mix(args.serve_mix, args.arrival_period, args.shared_prefix)
     knobs = ServingKnobs(page_size=args.page_size,
                          max_concurrent=args.max_concurrent,
                          kv_dtype_bytes=args.kv_dtype_bytes,
                          prefix_cache=not args.no_prefix_cache,
                          speculative_k=args.speculative_k)
+    space = None
+    if args.plan:
+        from ..plan import PlanSpace
+        space = PlanSpace(
+            page_sizes=(8, 16, 32),
+            max_concurrents=tuple(sorted({max(args.max_concurrent // 2, 1),
+                                          args.max_concurrent,
+                                          args.max_concurrent * 2})),
+            kv_dtypes=(1, 2))
     decision, gate = pick_serving(cfg, mix, capacity, knobs=knobs,
-                                  max_len=args.max_len, service=service,
-                                  store_dir=args.store_dir)
+                                  space=space, max_len=args.max_len,
+                                  service=service, store_dir=args.store_dir)
     s = gate["serving"]
     verdict = "admitted" if decision.admit else "rejected"
     print(f"[xmem] serve-mix {cfg.name}: {verdict} — worst-case "
@@ -376,6 +396,13 @@ def serve_mix_main(cfg, args, capacity: int, service=None) -> int:
           f"(paged {s.get('paged_kv_peak_bytes', 0) / 2**20:.1f} MiB vs "
           f"monolithic {s.get('monolithic_cache_bytes', 0) / 2**20:.1f} "
           f"MiB; source {decision.provenance['source']})")
+    for i, o in enumerate(decision.counter_offers or ()):
+        k = o.serving["knobs"]
+        print(f"[xmem]   offer #{i+1}: page={k['page_size']} "
+              f"c={k['max_concurrent']} kv{8*k['kv_dtype_bytes']} "
+              f"prefix={'on' if k['prefix_cache'] else 'off'} "
+              f"peak={o.peak_bytes/2**20:.1f} MiB "
+              f"slowdown=x{o.slowdown:.2f}")
     return 0 if decision.admit else 2
 
 
@@ -402,8 +429,7 @@ def main(argv=None) -> int:
     ap.add_argument("--no-prefix-cache", action="store_true")
     ap.add_argument("--speculative-k", type=int, default=0)
     ap.add_argument("--plan", action="store_true",
-                    help="on rejection, search serving counter-offers "
-                         "(not ported: slice 10)")
+                    help="on rejection, search serving counter-offers")
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)

@@ -23,9 +23,24 @@ Request kinds:
   "n_layers":4,"hbm_gib":0.25,"probe_min_capacity":false,
   "deadline_s":2.0}``: the job the port's ``launch/train.py`` builds
   from the same fields (``seq``/``batch`` default to 64/8 for a smoke
-  config, to ``TRAIN_4K``'s otherwise), decided at ``hbm_gib`` GiB;
+  config, to ``TRAIN_4K``'s otherwise), decided at ``hbm_gib`` GiB; an
+  optional ``"offload":{"optimizer_state":true,"activations":0.5}``
+  object estimates with host offload applied (the response's breakdown
+  carries the per-space peaks);
 * ``serve`` — ``{"kind":"serve","arch":...,"smoke":bool,"max_len":64,
   "batch":8,"hbm_gib":0.25}`` (gates on max(prefill, decode));
+* ``plan`` — the same job fields as ``train`` plus the remediation
+  search space: ``{"kind":"plan","arch":...,"batch":32,"hbm_gib":0.01,
+  "batch_grid":[16,8],"microbatch_grid":[2,4],"remat_grid":["full"],
+  "max_offers":5,"offload_opt_state":true,"offload_activations":[0.5]}``
+  answers a job that does not fit with ranked feasible counter-offers
+  (grid keys are optional: defaults derive from the job);
+* ``serve_plan`` — ``{"kind":"serve_plan","arch":...,"mix":"48:16:8",
+  "max_concurrent":8,"page_size":16,"kv_dtype_bytes":2,
+  "page_sizes":[8,16],"max_concurrents":[4,8],"kv_dtypes":[1,2],
+  "hbm_gib":0.05}``: the request-driven serving gate for the mix, with
+  ranked serving counter-offers on a rejection when a grid key is
+  given;
 * ``stats`` / ``ping`` / ``shutdown`` / ``metrics`` (the registry as
   JSON and Prometheus text);
 * ``health`` — degradation/robustness diagnostics: rung counters,
@@ -38,10 +53,9 @@ caching allocator can hold); a daemon on the CPU (``--device cpu``), or
 a request with ``"device": "cpu"``, must give ``hbm_gib``.
 
 Not ported yet, each answered with a structured ``{"ok": false, "kind":
-"error"}`` naming its slice: the ``plan`` and ``serve_plan`` kinds and
-a ``train`` request's ``offload`` object (the remediation planner and
-host offload, slice 10), and the ``place`` and ``evacuate`` kinds (the
-fleet scheduler, slice 11).
+"error"}`` naming its slice: the ``place`` and ``evacuate`` kinds (the
+fleet scheduler), and a ``plan`` request's ``devices`` or
+``pad_vocab_multiple`` (the planner's mesh axes), slice 11.
 
 Hardening: request lines are length-bounded (oversized or malformed
 lines get a structured ``{"kind": "error"}`` response and the
@@ -66,16 +80,16 @@ import torch
 
 from ..configs import get_config, get_smoke
 from ..configs.base import TRAIN_4K, smoke_shape
+from ..core.events import MemorySpace
+from ..core.orchestrator import OffloadPlan, ServingKnobs
+from ..plan import PlanSpace, RemediationPlanner
 from ..service import AdmissionService
 from ..train import TrainPolicy
-from .serve import device_capacity, pick_batch
+from .serve import device_capacity, parse_mix, pick_batch, pick_serving
 from .train import train_request
 
 #: wire kinds that wait for a later slice of the port: kind -> (what, slice)
-NOT_PORTED = {"plan": ("the remediation planner", 10),
-              "serve_plan": ("serving counter-offers (the remediation "
-                             "planner)", 10),
-              "place": ("fleet placement (sched/)", 11),
+NOT_PORTED = {"place": ("fleet placement (sched/)", 11),
               "evacuate": ("fleet evacuation (sched/)", 11)}
 
 
@@ -115,20 +129,79 @@ def request_capacity(d: dict, device: str = "cuda") -> int:
     return device_capacity(device)
 
 
+def build_offload_plan(d: dict) -> OffloadPlan | None:
+    """OffloadPlan from the optional wire-level ``offload`` object
+    (``{"optimizer_state": bool, "activations": 0..1,
+    "space": "host_pinned"|"host_pageable", "min_block_bytes": n}``);
+    None when absent or disabled."""
+    o = d.get("offload")
+    if not o:
+        return None
+    kw = {}
+    if "space" in o:
+        kw["space"] = MemorySpace(str(o["space"]))
+    if "min_block_bytes" in o:
+        kw["min_block_bytes"] = int(o["min_block_bytes"])
+    plan = OffloadPlan(
+        optimizer_state=bool(o.get("optimizer_state", False)),
+        activations=float(o.get("activations", 0.0)), **kw)
+    return plan if plan.enabled else None
+
+
 def build_train_request(d: dict, device: str = "cuda"):
     """AdmissionRequest from a wire-level train-job description."""
-    if d.get("offload"):
-        raise NotImplementedError(
-            "host offload (a train request's offload object) is not "
-            "ported yet (slice 10 of the port)")
     cfg, policy, shape = _train_job(d)
     deadline = d.get("deadline_s")
     req = train_request(
         cfg, policy, shape, request_capacity(d, device),
         probe_min_capacity=bool(d.get("probe_min_capacity", False)),
-        deadline_s=float(deadline) if deadline is not None else None)
+        deadline_s=float(deadline) if deadline is not None else None,
+        offload=build_offload_plan(d))
     req.job_id = str(d.get("id", f"{d['arch']}-b{shape.global_batch}"))
     return req
+
+
+def build_plan_space(d: dict) -> PlanSpace:
+    """PlanSpace from the optional wire-level grid keys. ``devices`` and
+    ``pad_vocab_multiple`` (the mesh axes) pass through, and the planner
+    raises on them (slice 11 of the port)."""
+    return PlanSpace(
+        batches=(tuple(int(b) for b in d["batch_grid"])
+                 if "batch_grid" in d else None),
+        microbatches=(tuple(int(m) for m in d["microbatch_grid"])
+                      if "microbatch_grid" in d else None),
+        remat=(tuple(str(r) for r in d["remat_grid"])
+               if "remat_grid" in d else None),
+        devices=tuple(int(n) for n in d.get("devices", ())),
+        pad_vocab_multiple=d.get("pad_vocab_multiple"),
+        max_offers=int(d.get("max_offers", 5)),
+        offload_opt_state=bool(d.get("offload_opt_state", False)),
+        offload_activations=tuple(
+            float(f) for f in d.get("offload_activations", ())))
+
+
+def build_serving_knobs(d: dict) -> ServingKnobs:
+    """ServingKnobs from a wire-level ``serve_plan`` request."""
+    return ServingKnobs(
+        page_size=int(d.get("page_size", 16)),
+        max_concurrent=int(d.get("max_concurrent", 8)),
+        kv_dtype_bytes=int(d.get("kv_dtype_bytes", 2)),
+        prefix_cache=bool(d.get("prefix_cache", True)),
+        speculative_k=int(d.get("speculative_k", 0)))
+
+
+def build_serving_space(d: dict) -> PlanSpace | None:
+    """Serving-axis PlanSpace from a wire request, or None when the
+    request enables no axis (gate only, no counter-offer search)."""
+    pages = tuple(int(p) for p in d.get("page_sizes", ()))
+    concs = tuple(int(c) for c in d.get("max_concurrents", ()))
+    dtypes = tuple(int(b) for b in d.get("kv_dtypes", ()))
+    prefixes = tuple(bool(x) for x in d.get("prefix_cache_grid", ()))
+    if not (pages or concs or dtypes or prefixes):
+        return None
+    return PlanSpace(page_sizes=pages, max_concurrents=concs,
+                     kv_dtypes=dtypes, prefix_cache=prefixes,
+                     max_offers=int(d.get("max_offers", 5)))
 
 
 def handle_request(service, d: dict, server=None,
@@ -167,6 +240,29 @@ def handle_request(service, d: dict, server=None,
         if kind == "train":
             decision = service.decide(build_train_request(d, device))
             return {"ok": True, **decision.to_json()}
+        if kind == "plan":
+            cfg, policy, shape = _train_job(d)
+            res = RemediationPlanner(service).plan(
+                cfg, policy, shape, capacity=request_capacity(d, device),
+                space=build_plan_space(d),
+                job_id=str(d.get("id", f"{d['arch']}-plan")))
+            return {"ok": True, **res.to_json()}
+        if kind == "serve_plan":
+            arch = d["arch"]
+            cfg = (get_smoke(arch) if d.get("smoke", True)
+                   else get_config(arch))
+            mix = parse_mix(str(d["mix"]), int(d.get("arrival_period", 1)),
+                            int(d.get("shared_prefix", 0)))
+            max_len = d.get("max_len")
+            decision, gate = pick_serving(
+                cfg, mix, request_capacity(d, device),
+                knobs=build_serving_knobs(d), space=build_serving_space(d),
+                max_len=int(max_len) if max_len is not None else None,
+                service=service)
+            return {"ok": True, **decision.to_json(),
+                    "kv_bytes_per_token": gate["kv_bytes_per_token"],
+                    "resident_bytes_per_request":
+                        gate["resident_bytes_per_request"]}
         if kind == "serve":
             arch = d["arch"]
             cfg = (get_smoke(arch) if d.get("smoke", True)

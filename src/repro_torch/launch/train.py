@@ -14,10 +14,16 @@ the estimate.
       --smoke --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-1b \\
       --smoke --device cpu --steps 6 --ckpt-dir ckpt --ckpt-every 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-32b \\
+      --smoke --device cpu --steps 0 --batch 8 --capacity-gib 0.07
 
 The gate decides through the admission service
 (:mod:`repro_torch.service.admission`), whose exact rung is the
-estimator's replay at the capacity. Capacity comes from the card
+estimator's replay at the capacity. When it rejects the asked
+``--batch``, the remediation planner's microbatch axis is searched
+first (``replan_if_needed``): with a feasible offer the loop trains the
+asked batch at the offer's microbatches; without one the gate halves
+the batch. Capacity comes from the card
 (``serve.device_capacity``: the free memory plus what the caching
 allocator holds); a CPU run budgets nothing. With ``--ckpt-dir`` the
 loop resumes from the newest valid checkpoint there, saves every
@@ -93,6 +99,44 @@ def admission_check(cfg, policy: TrainPolicy, shape: ShapeSpec,
     return decision.admit, decision.report
 
 
+def replan_if_needed(cfg, policy: TrainPolicy, shape: ShapeSpec,
+                     capacity: int, service: AdmissionService | None = None,
+                     est: XMemEstimator | None = None):
+    """Admit the job as asked, or replan it through the remediation
+    planner's microbatch axis. Returns ``(policy, report, decision)``:
+    the asked policy and its admitting decision, the offer's policy and
+    report with ``decision`` None, or the asked policy and its rejection
+    when no microbatch count fits.
+
+    Candidates are the accumulation factors that still divide the global
+    batch (``m0`` doubled up to three times), probed cheapest modeled
+    cost first; ``early_stop`` ends the search at the first feasible
+    offer. Batch, remat and offload stay the caller's; the gate's own
+    rejection is the planner's baseline, so it is not estimated
+    again."""
+    from ..plan import PlanSpace, RemediationPlanner
+    if service is None:
+        service = gate_service(est)
+    ok, rep, decision = admission_check(cfg, policy, shape, capacity,
+                                        service=service,
+                                        return_decision=True)
+    if ok:
+        return policy, rep, decision
+    space = PlanSpace(batches=(), remat=(), mb_doublings=3,
+                      early_stop=True, max_offers=1)
+    res = RemediationPlanner(service).plan(
+        cfg, policy, shape, capacity=capacity, space=space,
+        job_id=f"{cfg.name}/{shape.name}", baseline=decision)
+    offer = res.best()
+    if offer is not None:
+        p = dataclasses.replace(policy, microbatches=offer.microbatches)
+        print(f"[xmem] replanning: microbatches -> {p.microbatches} "
+              f"(peak {offer.peak_bytes/2**30:.2f} GiB, modeled "
+              f"slowdown x{offer.slowdown:.2f})")
+        return p, offer.report, None
+    return policy, rep, decision
+
+
 def pick_train_batch(cfg, policy: TrainPolicy, seq_len: int,
                      capacity: int | None = None,
                      candidates=(8, 4, 2, 1),
@@ -108,7 +152,8 @@ def pick_train_batch(cfg, policy: TrainPolicy, seq_len: int,
     to all but the first candidate, and every phase traced before
     (``est.trace_phases`` ahead of the capacity) to all. Returns
     ``(batch, gate)``; ``gate`` holds every candidate tried (with its
-    decision's ``source`` and ``rung``), the admitting report and
+    decision's ``source`` and ``rung``; ``decisions`` maps each batch
+    tried to its ``AdmissionDecision``), the admitting report and
     decision, the CPU seconds and the trace cache's counts, or
     ``(None, gate)`` when no candidate fits."""
     if capacity is None:
@@ -124,6 +169,7 @@ def pick_train_batch(cfg, policy: TrainPolicy, seq_len: int,
         ok, rep, decision = admission_check(
             cfg, policy, smoke_shape(seq_len, b), capacity,
             service=service, return_decision=True)
+        gate.setdefault("decisions", {})[b] = decision
         gate["candidates"].append(
             {"batch": b, "estimate": decision.peak_bytes,
              "tensor": decision.peak_tensor_bytes,
@@ -254,12 +300,23 @@ def main(argv=None) -> int:
         capacity = device_capacity(args.device)
     else:
         capacity = 1 << 62          # a CPU run budgets nothing
+    service = gate_service()
+    policy, rep, decision = replan_if_needed(
+        cfg, policy, smoke_shape(args.seq, args.batch), capacity,
+        service=service)
+    if decision is None:
+        # the planner's offer: the asked batch at its microbatches
+        batch, gate = args.batch, {"report": rep}
+        print(f"[xmem] batch {batch} x {policy.microbatches} microbatches:"
+              f" estimate {rep.peak_bytes / 2**20:.1f} MiB (tensors "
+              f"{rep.peak_tensor_bytes / 2**20:.1f}) -> ADMIT")
+        return _train_main(cfg, policy, batch, gate, args, on_card)
     candidates, b = [], args.batch
     while b >= 1:
         candidates.append(b)
         b //= 2
     batch, gate = pick_train_batch(cfg, policy, args.seq, capacity,
-                                   candidates)
+                                   candidates, service=service)
     for c in gate["candidates"]:
         print(f"[xmem] batch {c['batch']}: estimate "
               f"{c['estimate'] / 2**20:.1f} MiB (tensors "
@@ -271,6 +328,13 @@ def main(argv=None) -> int:
     if batch is None:
         print("[xmem] no batch fits -> rejected")
         return 2
+    return _train_main(cfg, policy, batch, gate, args, on_card)
+
+
+def _train_main(cfg, policy: TrainPolicy, batch: int, gate: dict, args,
+                on_card: bool) -> int:
+    """``main``'s training half: ``args.steps`` steps of ``batch`` under
+    ``policy`` and the result line beside the gate's report."""
     if args.steps == 0:
         return 0
     shape = smoke_shape(args.seq, batch)

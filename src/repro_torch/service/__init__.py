@@ -21,9 +21,9 @@ service:
 * ``repro_torch.launch.served`` — the line-JSON TCP daemon exposing the
   service to schedulers.
 
-Counter-offers need the remediation planner (slice 10); the fleet
-scheduler and sharded estimates come with ``sched/`` and
-``distributed/`` (slice 11).
+Counter-offers come from the remediation planner
+(:mod:`repro_torch.plan`); the fleet scheduler and sharded estimates
+come with ``sched/`` and ``distributed/`` (slice 11 of the port).
 """
 from .admission import (AdmissionDecision, AdmissionRequest,  # noqa: F401
                         AdmissionService)

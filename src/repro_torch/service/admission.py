@@ -71,11 +71,14 @@ Deltas from the reference, each for the port's estimator:
   ``tracer`` or ``replay`` checkpoint) instead of finishing its trace
   into the void.
 
-Counter-offers (a rejection with a ``meta["plan"]`` context, or
-``decide_serving(plan=...)``) need the remediation planner and raise
-``NotImplementedError`` (slice 10), as do host-offload requests;
-``mesh_sweep`` and requests with shard factors or collectives need the
-sharding module (slice 11).
+A rejection whose request carries a ``meta["plan"]`` context (a
+:class:`~repro_torch.plan.PlanContext`), or a request-driven serving
+rejection with ``decide_serving(plan=...)``, comes back with the
+remediation planner's ranked counter-offers. A request with an
+``offload`` plan is estimated with the orchestrator's host-offload pass
+(its device peak is the verdict; ``breakdown["space_peaks"]`` has every
+space's). ``mesh_sweep`` and requests with shard factors or collectives
+need the sharding module (slice 11 of the port).
 """
 from __future__ import annotations
 
@@ -132,8 +135,9 @@ class AdmissionRequest:
     capacity: int | None = None         # device bytes (required)
     probe_min_capacity: bool = False    # also compute min feasible capacity
     deadline_s: float | None = None     # per-request budget
-    # host-offload schedule (core.orchestrator.OffloadPlan): not ported
-    # (slice 10); a request that carries one raises
+    # host-offload schedule (core.orchestrator.OffloadPlan): the
+    # estimate runs with the orchestrator's offload pass enabled and the
+    # verdict is the device space's peak
     offload: Any | None = None
     # serving-knob signature (ServingKnobs.signature()) — separates
     # degradation-ladder evidence families per serving configuration
@@ -163,8 +167,8 @@ class AdmissionDecision:
     wall_s: float
     min_feasible_capacity: int | None = None
     report: EstimateReport | None = None     # full report (in-process use)
-    # ranked feasible alternatives: the planner's (slice 10); always
-    # None in the port
+    # ranked feasible alternatives (repro_torch.plan.CounterOffer) when
+    # the request carries a ``meta["plan"]`` PlanContext
     counter_offers: list | None = None
     # degradation provenance
     rung: str = RUNG_EXACT          # which ladder rung answered
@@ -495,8 +499,6 @@ class AdmissionService:
         if req.capacity is None:
             raise ValueError(f"request {req.job_id!r} has no capacity "
                              f"(the device's bytes)")
-        if req.offload is not None:
-            raise _not_ported("host offload", 10)
         if req.shard_factor_fn is not None or req.collective_specs:
             raise _not_ported("sharded estimates (shard factors, "
                               "collectives)", 11)
@@ -547,14 +549,24 @@ class AdmissionService:
             est = self.estimator
             cache = est.trace_cache
             before = cache.thread_stats()
-            rep = est.estimate_training(
-                req.fwd_bwd_fn, req.params, req.batch,
-                update_fn=req.update_fn, opt_init_fn=req.opt_init_fn,
-                capacity=req.capacity)
-            min_cap = None
-            if req.probe_min_capacity:
-                min_cap = est.min_feasible_capacity(
-                    req.fwd_bwd_fn, req.params, req.batch, report=rep)
+            # an offload request runs with the orchestrator's offload
+            # pass swapped in for exactly this estimate (per-thread
+            # estimator, so no cross-request bleed; restored either way)
+            prev_policy = est.orchestrator.policy
+            if req.offload is not None:
+                est.orchestrator.policy = dataclasses.replace(
+                    prev_policy, offload=req.offload)
+            try:
+                rep = est.estimate_training(
+                    req.fwd_bwd_fn, req.params, req.batch,
+                    update_fn=req.update_fn, opt_init_fn=req.opt_init_fn,
+                    capacity=req.capacity)
+                min_cap = None
+                if req.probe_min_capacity:
+                    min_cap = est.min_feasible_capacity(
+                        req.fwd_bwd_fn, req.params, req.batch, report=rep)
+            finally:
+                est.orchestrator.policy = prev_policy
             return rep, _provenance(cache, before), min_cap
 
         with obs_spans.span("rung.exact", job_id=req.job_id):
@@ -683,14 +695,23 @@ class AdmissionService:
                                decision: AdmissionDecision
                                ) -> AdmissionDecision:
         """A rejection whose request carries a structured plan context
-        (``meta["plan"]``) would come back with ranked counter-offers
-        from the remediation planner, which is not ported: such a
-        rejection raises. Degraded decisions skip planning, as in the
-        reference."""
+        (``meta["plan"]``, a :class:`~repro_torch.plan.PlanContext`)
+        comes back with ranked counter-offers instead of a bare no. The
+        planner's own probe requests carry no context, so this cannot
+        recurse. Degraded decisions skip planning (the search's probes
+        would hit the same failing rungs)."""
         ctx = req.meta.get("plan") if req.meta else None
         if ctx is None or decision.admit or decision.degraded:
             return decision
-        raise _not_ported("counter-offers (the remediation planner)", 10)
+        from ..plan import RemediationPlanner
+        result = RemediationPlanner(self).plan(
+            ctx.cfg, ctx.policy, ctx.shape, capacity=req.capacity,
+            space=ctx.space, job_id=req.job_id, baseline=decision,
+            shard_factor_fn=req.shard_factor_fn,
+            collective_specs=req.collective_specs)
+        decision.counter_offers = result.offers
+        decision.provenance["plan"] = result.stats
+        return decision
 
     def decide_serving(self, job_id: str, decode_fn: Callable, params,
                        cache_tree, batch, *, capacity: int,
@@ -717,19 +738,18 @@ class AdmissionService:
         peak_bytes <= capacity``, as ``decide`` does. Degrades like
         ``decide``: a failed or over-deadline estimate is answered from
         the analytic rung over (params + cache + batch) avals, with
-        serving knobs separating evidence families. Serving
-        counter-offers (``plan``) need the planner (slice 10) and
-        raise."""
-        if plan is not None:
-            raise _not_ported("serving counter-offers (the remediation "
-                              "planner)", 10)
+        serving knobs separating evidence families. A request-driven
+        rejection carrying a ``plan``
+        (:class:`~repro_torch.plan.ServingPlanContext`) comes back with
+        ranked serving counter-offers."""
         if shard_factor_fn is not None:
             raise _not_ported("sharded serving estimates", 11)
         t0 = time.perf_counter()
         if deadline_s is None:
             deadline_s = self.degrade.default_deadline_s
         if stream is None and mix is not None:
-            stream = mix.stream()
+            # a RequestMix expands to its stream; a RequestStream is one
+            stream = mix.stream() if hasattr(mix, "stream") else mix
         if stream is not None and kv_bytes_per_token is None:
             raise ValueError(
                 "request-driven serving decisions need kv_bytes_per_token")
@@ -791,6 +811,10 @@ class AdmissionService:
                                               time.perf_counter() - t0,
                                               None)
                     decision.deadline_s = deadline_s
+                    if plan is not None and not decision.admit \
+                            and not decision.degraded:
+                        decision = self._attach_serving_offers(
+                            plan, decision, capacity)
                 if cid is not None:
                     decision.correlation_id = cid
                 self._m_decide_s.observe(decision.wall_s)
@@ -798,6 +822,26 @@ class AdmissionService:
                 return decision
         finally:
             self._m_in_flight.dec()
+
+    def _attach_serving_offers(self, ctx, decision: AdmissionDecision,
+                               capacity: int) -> AdmissionDecision:
+        """A request-driven serving rejection with a
+        ``ServingPlanContext`` comes back with ranked serving
+        counter-offers (page size / concurrency / KV dtype /
+        prefix cache). Offers are best effort: a planning failure leaves
+        the bare rejection and records the error under
+        ``provenance["plan"]``."""
+        from ..plan import RemediationPlanner
+        try:
+            result = RemediationPlanner(self).plan_serving(
+                ctx, capacity=capacity, job_id=decision.job_id,
+                baseline=decision)
+            decision.counter_offers = result.offers
+            decision.provenance["plan"] = result.stats
+        except Exception as e:   # noqa: BLE001 — offers are best-effort
+            decision.provenance["plan"] = {
+                "error": f"{type(e).__name__}: {e}"}
+        return decision
 
     def _decision(self, req: AdmissionRequest, rep: EstimateReport,
                   provenance: dict, wall_s: float,

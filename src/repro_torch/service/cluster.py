@@ -28,9 +28,13 @@ and a faulted replay that OOM-admits ANY job raises
 degradation ladder's contract is that failures cost headroom, never
 safety.
 
-``retry_rejections`` re-submits a rejection on its best counter-offer,
-which needs the remediation planner: an arrival with a ``plan`` context
-raises ``NotImplementedError`` (slice 10) when the service rejects it.
+``retry_rejections`` re-submits a rejection on its best counter-offer
+(the arrival must carry a ``plan`` context, a
+:class:`~repro_torch.plan.PlanContext`) and scores the retry.
+
+Delta from the reference: an exact rejection whose replay stopped at the
+capacity is scored at the job's unbounded peak (``_scored_estimate``),
+so that the record predicts the out-of-memory the decision did.
 """
 from __future__ import annotations
 
@@ -128,6 +132,22 @@ class ClusterSimulator:
         return self._replay(arrivals, retry_rejections, deadline_s,
                             chaos=False)
 
+    def _scored_estimate(self, req: AdmissionRequest,
+                         d: AdmissionDecision) -> int:
+        """The estimate a run record scores (``oom_pred`` is ``estimate
+        > capacity``). An exact rejection replayed at the capacity stops
+        where the simulated allocator ran out of memory, with its peak at
+        or under the capacity (the port's admit rule; the reference
+        replays unbounded): such a record scores the job's unbounded peak
+        instead, one replay of traces the rejection left warm, so the
+        rejection is scored as one."""
+        if d.admit or d.peak_bytes > d.capacity:
+            return d.peak_bytes
+        free = self.service.decide(dataclasses.replace(
+            req, job_id=f"{req.job_id}/unbounded", capacity=1 << 62,
+            meta={}))
+        return max(free.peak_bytes, d.capacity + 1)
+
     def _replay(self, arrivals: Sequence[JobArrival],
                 retry_rejections: bool, deadline_s: float | None,
                 chaos: bool) -> ClusterOutcome:
@@ -145,6 +165,7 @@ class ClusterSimulator:
                 req.meta.pop("plan", None)
             d = self.service.decide(req)
             offer = None
+            scored_req = req
             if retry_rejections and not d.admit and d.counter_offers \
                     and job.plan is not None:
                 best = d.counter_offers[0]
@@ -160,18 +181,19 @@ class ClusterSimulator:
                                         else deadline_s)
                 retry = self.service.decide(retry_req)
                 if retry.admit:
-                    d, offer = retry, best
+                    d, offer, scored_req = retry, best, retry_req
                     retries.append((job.job_id, best))
+            estimate = self._scored_estimate(scored_req, d)
             truth = job.truth_bytes if offer is None else None
             if truth is None and self.truth_fn is not None:
                 truth = self.truth_fn(d)
             if truth is None:
-                truth = d.peak_bytes
+                truth = estimate
             decisions.append(d)
             records.append(metrics.RunRecord(
                 config=job.job_id, family=job.family,
                 estimator="admission_service", device=job.device,
-                capacity=job.capacity, estimate=d.peak_bytes,
+                capacity=job.capacity, estimate=estimate,
                 truth=int(truth), runtime_s=d.wall_s))
         wall = time.perf_counter() - t0
         summary = score(records)

@@ -1,15 +1,17 @@
-"""Training and serving step factories, optimizers, data, checkpoints
-and straggler detection of the port."""
+"""Training and serving step factories, optimizers, data, checkpoints,
+elastic re-carving and straggler detection of the port."""
 from .checkpoint import CheckpointManager
 from .data import DataConfig, SyntheticDataset
-from .elastic import StragglerMonitor
+from .elastic import (MeshPlan, StragglerMonitor, replan_mesh,
+                      reshard_batch_size)
 from .optimizer import OPTIMIZERS, Optimizer, clip_by_global_norm, get_optimizer
 from .train_step import (TrainPolicy, TrainRun, make_estimator_hooks,
                          make_fwd_bwd, make_prefill_step, make_serve_step,
                          make_train_step, run_steps)
 
 __all__ = ["CheckpointManager", "DataConfig", "SyntheticDataset",
-           "StragglerMonitor", "OPTIMIZERS", "Optimizer",
+           "MeshPlan", "StragglerMonitor", "replan_mesh", "reshard_batch_size",
+           "OPTIMIZERS", "Optimizer",
            "clip_by_global_norm", "get_optimizer", "TrainPolicy", "TrainRun",
            "run_steps", "make_estimator_hooks", "make_fwd_bwd",
            "make_prefill_step", "make_serve_step", "make_train_step"]

@@ -1,6 +1,14 @@
-"""Straggler detection (the ``StragglerMonitor`` of
-``repro.train.elastic``, copied; the mesh re-carving there waits for the
-port's planner).
+"""Elastic re-carving and straggler detection (port of
+``repro.train.elastic``).
+
+Elasticity model: the mesh is re-carved along the ``data``/``pod`` axes
+when nodes join or leave (``replan_mesh``), keeping the model axis, and
+the global batch is preserved by resizing each replica's share
+(``reshard_batch_size``). Both are pure arithmetic, copied. The
+reference's ``shrink_and_replan`` (``ElasticReplan``) re-admits the job
+on the re-carved mesh with spec-driven per-device shard factors; it
+needs the sharding module and the planner's mesh axes, which are not
+ported (slice 11 of the port).
 
 Deterministic shard assignment means any spare worker can recompute a
 slow worker's shard; ``StragglerMonitor`` is the detection half: each
@@ -9,7 +17,56 @@ workers' medians that names the shards to reassign.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """A target device layout (axis sizes)."""
+
+    pod: int
+    data: int
+    model: int
+
+    @property
+    def devices(self) -> int:
+        return self.pod * self.data * self.model
+
+
+def replan_mesh(current: MeshPlan, available_devices: int,
+                min_model: int = 1) -> MeshPlan:
+    """Re-carve the mesh after a membership change.
+
+    Keeps the model axis (tensor parallelism needs a stable weight
+    sharding) and folds the loss into data/pod parallelism: losing nodes
+    costs throughput, not correctness.
+    """
+    model = max(current.model, min_model)
+    if available_devices < model:
+        raise ValueError(
+            f"cannot keep model axis {model} with only "
+            f"{available_devices} devices")
+    replicas = available_devices // model
+    # prefer keeping pods balanced: largest pod count that divides
+    pod = math.gcd(current.pod, replicas) or 1
+    data = replicas // pod
+    if pod * data < replicas:
+        # unreachable while the carve is a gcd (a gcd of replicas always
+        # divides it): a floor so a pod choice that is not a divisor
+        # falls back to a flat data axis instead of stranding replicas
+        pod, data = 1, replicas
+    return MeshPlan(pod=pod, data=data, model=model)
+
+
+def reshard_batch_size(global_batch: int, old: MeshPlan, new: MeshPlan
+                       ) -> int:
+    """Per-replica batch after re-carving (global batch preserved; if not
+    divisible, round up per replica and trim in the data pipeline)."""
+    replicas = new.pod * new.data
+    return -(-global_batch // replicas)
 
 
 class StragglerMonitor:

@@ -117,9 +117,10 @@ print("N", sum(n.startswith("repro_torch") for n in sys.modules))
 print("HAVE", sorted(n for n in sys.modules if n.startswith("repro_torch.")))
 """
 
-# the training, MoE, VLM/audio, baselines, sweep and admission-service
-# slices' modules, which the walk above must have imported
+# the training, MoE, VLM/audio, baselines, sweep, admission-service and
+# planner slices' modules, which the walk above must have imported
 _TRAINING_MODULES = (
+    "repro_torch.plan", "repro_torch.plan.cost", "repro_torch.plan.planner",
     "repro_torch.service", "repro_torch.service.admission",
     "repro_torch.service.degrade", "repro_torch.service.faults",
     "repro_torch.service.store", "repro_torch.service.cluster",

@@ -6,8 +6,10 @@
 * A socket round trip, and the reference's hardening cases: malformed
   and oversized lines, backpressure, draining, health over the wire, a
   socket fault, the wire deadline.
-* ``plan``, ``serve_plan``, ``place``, ``evacuate`` and a ``train``
-  request's ``offload`` answer a structured error naming their slice.
+* ``place``, ``evacuate`` and a ``plan`` request's mesh axis answer a
+  structured error naming their slice; a ``train`` request's
+  ``offload`` object answers with per-space peaks, a malformed one with
+  a structured error.
 * ``--once`` reads one request from stdin; ``serve_mix_main`` exits 0
   when the mix fits and 2 when it does not.
 """
@@ -94,11 +96,13 @@ def test_serve_answer_is_the_serving_gate():
     svc.close()
 
 
-@pytest.mark.parametrize("kind,slice_no", [("plan", 10), ("serve_plan", 10),
-                                           ("place", 11), ("evacuate", 11)])
+@pytest.mark.parametrize("kind,slice_no", [("plan", 11), ("place", 11),
+                                           ("evacuate", 11)])
 def test_kinds_of_later_slices_answer_a_structured_error(kind, slice_no):
     svc = _svc()
-    resp = served.handle_request(svc, dict(TRAIN, kind=kind), device="cpu")
+    # a plan request answers; its mesh axis is slice 11's
+    resp = served.handle_request(svc, dict(TRAIN, kind=kind, devices=[4]),
+                                 device="cpu")
     assert resp["ok"] is False and resp["kind"] == "error"
     assert f"slice {slice_no}" in resp["error"]
     assert "NotImplementedError" in resp["error"]
@@ -108,8 +112,14 @@ def test_kinds_of_later_slices_answer_a_structured_error(kind, slice_no):
 def test_offload_answers_a_structured_error():
     svc = _svc()
     resp = served.handle_request(
-        svc, dict(TRAIN, offload={"optimizer_state": True}), device="cpu")
-    assert resp["kind"] == "error" and "slice 10" in resp["error"]
+        svc, dict(TRAIN, offload={"optimizer_state": True,
+                                  "space": "no_such_space"}), device="cpu")
+    assert resp["ok"] is False and resp["kind"] == "error"
+    assert "ValueError" in resp["error"]
+    resp = served.handle_request(
+        svc, dict(TRAIN, offload={"optimizer_state": True,
+                                  "min_block_bytes": 0}), device="cpu")
+    assert resp["ok"] and resp["breakdown"]["space_peaks"]["host_pinned"] > 0
     svc.close()
 
 
@@ -292,12 +302,14 @@ def test_serve_mix_main_exits_by_the_verdict(gib, rc, capsys):
     assert ("admitted" if rc == 0 else "rejected") in out
 
 
-def test_serve_mix_needs_a_capacity_on_the_cpu_and_no_plan():
+def test_serve_mix_needs_a_capacity_on_the_cpu_and_no_plan(capsys):
     with pytest.raises(SystemExit):
         tserve.main(["--arch", "qwen3-32b", "--smoke", "--device", "cpu",
                      "--serve-mix", "16:16:2"])
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        tserve.main(["--arch", "qwen3-32b", "--smoke", "--device", "cpu",
-                     "--capacity-gib", "1", "--serve-mix", "16:16:2",
-                     "--plan"])
+    # --plan on a mix that fits: admitted, no search, no offers
+    assert tserve.main(["--arch", "qwen3-32b", "--smoke", "--device", "cpu",
+                        "--capacity-gib", "1", "--serve-mix", "16:16:2",
+                        "--plan"]) == 0
+    out = capsys.readouterr().out
+    assert "admitted" in out and "offer #" not in out
 

@@ -14,7 +14,8 @@ JAX package's scoring.
   ``estimate_request_stream`` at the same knobs.
 * ``ClusterSimulator``'s ``score`` is bit-identical to the reference's
   over the same ``RunRecord``s.
-* What waits for later slices raises ``NotImplementedError`` naming it.
+* What waits for later slices raises ``NotImplementedError`` naming it;
+  what slice 10 ported (offload requests, counter-offers) answers.
 """
 import dataclasses
 
@@ -32,8 +33,7 @@ from repro_torch.core.orchestrator import ServingKnobs
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.models import model as TM
-from repro_torch.service import (AdmissionService, JobContext,
-                                 plan_raising_at)
+from repro_torch.service import AdmissionService, plan_raising_at
 from repro_torch.service import cluster as tcluster
 from repro_torch.train.train_step import TrainPolicy, make_estimator_hooks
 
@@ -229,8 +229,16 @@ def test_pick_serving_is_the_request_stream_estimate():
     d2, _ = tserve.pick_serving(cfg, mix, want.worst_case_peak_bytes - 1,
                                 knobs=knobs, max_len=max_len, service=svc)
     assert not d2.admit and d2.peak_bytes == d.peak_bytes
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        tserve.pick_serving(cfg, mix, 1 << 30, space=object())
+    # serving counter-offers: a rejected mix comes back with offers at
+    # smaller concurrencies, each at or under the capacity
+    from repro_torch.plan import PlanSpace
+    d3, _ = tserve.pick_serving(
+        cfg, mix, want.worst_case_peak_bytes - 1, knobs=knobs,
+        space=PlanSpace(max_concurrents=(1,)), max_len=max_len,
+        service=svc)
+    assert not d3.admit and d3.provenance["plan"]["candidates"] == 1
+    assert all(o.peak_bytes < want.worst_case_peak_bytes
+               for o in d3.counter_offers)
     svc.close()
 
 
@@ -246,21 +254,31 @@ def test_cluster_score_is_bit_identical_to_the_reference():
 
 
 def test_what_waits_for_later_slices_raises():
+    from repro_torch.core.orchestrator import OffloadPlan
+    from repro_torch.plan import PlanContext, PlanSpace
     svc = AdmissionService(workers=1, cache=TraceCache())
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        svc.decide(jobs.request("offload", offload=object()))
+    # host offload is ported: the device peak is the verdict
+    off = svc.decide(jobs.request("offload", offload=OffloadPlan(
+        optimizer_state=True, min_block_bytes=0)))
+    assert off.admit and "space_peaks" in off.breakdown
     with pytest.raises(NotImplementedError, match="slice 11"):
         svc.decide(jobs.request("sharded", shard_factor_fn=lambda b: 2.0))
     with pytest.raises(NotImplementedError, match="slice 11"):
         svc.mesh_sweep(None, None, None, ())
-    # a rejection with a plan context would get counter-offers
-    plan = JobContext(None, None, None)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        svc.decide(jobs.request("reject", capacity=1, meta={"plan": plan}))
+    # a rejection with a plan context gets counter-offers; the planner's
+    # mesh axes wait for slice 11
+    cfg = treg.get_smoke("qwen3-32b")
+    plan = PlanContext(cfg, TrainPolicy(), smoke_shape(SEQ, 4),
+                       space=PlanSpace(devices=(4,)))
+    req = ttrain.train_request(cfg, TrainPolicy(), smoke_shape(SEQ, 4), 1)
+    req.meta["plan"] = plan
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        svc.decide(req)
+    req.meta["plan"] = dataclasses.replace(plan, space=PlanSpace())
+    d = svc.decide(req)
+    assert not d.admit and d.counter_offers == []
+    assert d.provenance["plan"]["candidates"] > 0
     assert svc.decide(jobs.request("admit", meta={"plan": plan})).admit
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        svc.decide_serving("s", None, None, None, None, capacity=1,
-                           plan=object())
     with pytest.raises(ValueError, match="capacity"):
         svc.decide(jobs.request("nocap", capacity=None))
     svc.close()
