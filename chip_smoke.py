@@ -122,10 +122,22 @@ non-zero:
    local port answers the admitted batch as the wire's ``train``
    request, equal to the gate's decision from memory, then, restarted
    over the same store, from disk with no trace; the wire's other kinds;
+   a third start places the job on the daemon's fleet of two nodes at
+   the card's capacity (``place``, from disk, no trace, the gate's safe
+   threshold) and fails its node (``evacuate``: it moves to the other);
    the run's measured peaks ingested as telemetry against the
-   decision;
+   decision; then ``fleet_colocate``: the port's fleet scheduler
+   places the job at batches 4 (A), 2 (B) and its gate's batch (C) on a
+   fleet whose node000 is this card, at the capacity one process has
+   while two more processes hold CUDA contexts on it, beside three
+   simulated H100s; the jobs it puts on node000 (A and B) run their 3
+   AdamW steps side by side, each in a worker process of its own
+   (``--colocate-worker vlm``, started together at one barrier), each
+   held to its own estimate; meanwhile node000 fails in the scheduler's
+   books, on the CPU, and every displaced job is re-placed or accounted
+   lost, with no trace;
 12. audio_train — the same for musicgen-medium at full width, depth cut
-   to 24 layers (``--train audio``). The training paths launch neither
+   to 16 layers (``--train audio``). The training paths launch neither
    attention kernel: they train through the chunked attention, as the
    JAX package does;
 13. ssm_train — the same for xlstm-1.3b at full width, depth cut to
@@ -180,8 +192,10 @@ HYBRID_PERIOD = 2
 # xlstm-1.3b serving depth, in whole periods of 8: one prefill estimate
 # at 48 layers took 58.0 and 81.6 s of the chip machine's CPU at seq 2048
 # in two runs (PERF.md section 4), over the 60 s allowed in the second;
-# 24 rather than 32 layers keeps the whole run well inside its limit
-SSM_SERVING_LAYERS = 24
+# 16 layers (24 until the fleet phase came: its serving path took 127
+# and 175 s of the run on two machines) keeps the whole run inside its
+# limit
+SSM_SERVING_LAYERS = 16
 # serving paths: arch -> (B, H, Hkv, S, d) of its prefill attention, and
 # the kernels held against the plain version at that shape
 SERVING_SHAPES = {"qwen3-32b": ((8, 64, 8, PROMPT_LEN, 128), ("sm90", "simt")),
@@ -210,7 +224,10 @@ PLAIN_BATCH = 8
 # admits its first) and the second admitted. phi3.5-moe at 4 layers fits
 # only with 0.27 GB to spare, and its gate rejects every batch 0.5 GB
 # lower. One musicgen estimate at 48 layers takes about 180 s of CPU
-# (PERF.md section 4), over the 60 s allowed, so it trains 24. xLSTM's
+# (PERF.md section 4), over the 60 s allowed, so it trains 16: at 24 its
+# turn (272-281 s) left the run no room for the fleet phase (1,185.6 s
+# with it; PERF.md section 5), and at 16 the CPU gate CLI still rejects
+# 64 (batch 64 at 2 microbatches: 50,992.0 MiB) and admits 32. xLSTM's
 # least depth, one period of 8, already takes about 250 s (its sLSTM's
 # 4096 steps, three times forward and once backward under the trace);
 # its gate starts at 16, which it admitted after rejecting 32 (PERF.md)
@@ -218,7 +235,7 @@ TRAIN_JOBS = {"dense": ("qwen3-32b", 4, (8, 4, 2, 1)),
               "dense_sgd": ("qwen3-32b", 4, (8, 4, 2, 1)),
               "moe": (MOE_ARCH, 3, (8, 4, 2, 1)),
               "vlm": (VLM_ARCH, 24, (16, 8, 4, 2, 1)),
-              "audio": (AUDIO_ARCH, 24, (64, 32, 16, 8, 4, 2, 1)),
+              "audio": (AUDIO_ARCH, 16, (64, 32, 16, 8, 4, 2, 1)),
               "ssm": (SSM_ARCH, 8, (16, 8, 4, 2, 1)),
               "hybrid": (HYBRID_ARCH, HYBRID_PERIOD, (1,))}
 # each job's optimizer (default AdamW): dense_sgd is the paper's
@@ -275,6 +292,23 @@ CKPT_JOB = "vlm"            # the job whose final state goes through a checkpoin
 # whose admitted batch the admission daemon answers over a socket, then
 # again from disk after a restart
 DAEMON_JOB = "vlm"
+# the daemon's fleet for its ``place`` and ``evacuate`` requests: nodes at
+# the card's capacity (the daemon's default without --fleet-hbm-gib)
+DAEMON_FLEET_NODES = 2
+# ``fleet_colocate``: the job whose arrivals the fleet scheduler places,
+# after its own turn. A and B are its largest batches of its gate's grid
+# whose estimates together fit the card shared by two more processes (the
+# CPU gate CLI at 77.73 GiB: batch 4 42,602.0 MiB, batch 2 21,982.0 MiB;
+# 4 and 4 are 85,204 MiB, over the card); C arrives at the gate's
+# admitted batch, which the hole A and B leave cannot take. The job traces
+# A's and B's batches ahead with its gate's, so no decision traces
+FLEET_JOB = "vlm"
+FLEET_BATCHES = {"A": 4, "B": 2}
+# nodes beside the card's (node000): other H100s at its capacity, each in
+# a failure domain of its own (``build_fleet``'s round robin over 4)
+FLEET_SIM_NODES = 3
+# seconds the workers have to open their contexts, run and answer
+FLEET_TIMEOUT_S = 300
 # the dense job's batches decided on the degradation ladder's lower rungs
 # and held to the card: the run's truth at the gate's batch (4),
 # DirectProbe's probe peaks (1, 2), the sweep's rejection the card ran
@@ -1316,6 +1350,8 @@ def phase_train(job: str, rows_path: str) -> None:
     ahead = list(candidates[:TRACED_AHEAD])
     if job == "dense":
         ahead += [b for b in DENSE_SWEEP_AHEAD if b not in ahead]
+    if job == FLEET_JOB:
+        ahead += [b for b in FLEET_BATCHES.values() if b not in ahead]
     for b in ahead:
         fwd_bwd, update, opt_init = make_estimator_hooks(cfg, policy)
         params, specs = M.abstract_params(cfg), input_specs(
@@ -1435,9 +1471,18 @@ def phase_train(job: str, rows_path: str) -> None:
                                  truths)
         phase_plan_offers(cfg, policy, service, capacity, gate, truths,
                           plan_ahead_s)
+    if job == FLEET_JOB:
+        # the workers import while the daemon phase runs on the CPU; each
+        # waits on stdin, and exits when this process does
+        workers = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--colocate-worker", job], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, text=True) for _ in FLEET_BATCHES]
     if job == DAEMON_JOB:
         phase_admission_daemon(cfg, policy, est, store_dir, capacity, gate,
                                truth, truth_allocated, rel_reserved)
+    if job == FLEET_JOB:
+        phase_fleet_colocate(est, gate, workers)
 
 
 def phase_baselines(spec, cfg, capacity: int, truth: int, rep, est,
@@ -2035,9 +2080,13 @@ def phase_admission_daemon(cfg, policy, est, store_dir: str, capacity: int,
     already fits: no offers, no trace). Then the daemon drains and stops, a
     second one starts over a fresh service on the same store directory,
     and the same request must come back with the same bytes from disk,
-    with no trace. Last, the run's measured peaks go to the telemetry
-    ingestor against the job's digest and family, and the residual read
-    back must be the ``train`` line's error."""
+    with no trace. A third start over the store, with a fleet of
+    ``DAEMON_FLEET_NODES`` nodes at the card's capacity, answers a
+    ``place`` request for the same job from disk with no trace, charging
+    the gate's safe threshold, and an ``evacuate`` of the node it landed
+    on, which moves it to the other node. Last, the run's measured peaks
+    go to the telemetry ingestor against the job's digest and family,
+    and the residual read back must be the ``train`` line's error."""
     import hashlib
     import socket
 
@@ -2054,8 +2103,8 @@ def phase_admission_daemon(cfg, policy, est, store_dir: str, capacity: int,
             "smoke": False,
             "seq": TRAIN_SEQ, "batch": batch, "hbm_gib": capacity / 2**30}
 
-    def start(svc):
-        server = served.AdmissionServer(("127.0.0.1", 0), svc)
+    def start(svc, **kw):
+        server = served.AdmissionServer(("127.0.0.1", 0), svc, **kw)
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
         return server, thread
@@ -2102,6 +2151,20 @@ def phase_admission_daemon(cfg, policy, est, store_dir: str, capacity: int,
     stop(server, thread)
     load = svc2.cache.store.stats()
     svc2.close()
+    # the wire's fleet kinds on a third start over the store: the job at
+    # the admitted batch placed on the daemon's fleet (nodes at the
+    # card's capacity), decided from disk; then its node fails and the
+    # job moves to the other node
+    svc3 = AdmissionService(workers=1, store_dir=store_dir)
+    server, thread = start(svc3, fleet_nodes=DAEMON_FLEET_NODES)
+    place = {k: v for k, v in wire.items() if k != "hbm_gib"}
+    place.update(kind="place", id=f"{DAEMON_JOB}-b{batch}")
+    (placed,) = lines(server, [place])
+    home = (placed.get("nodes") or [None])[0]
+    (evacuated,) = lines(server, [{"kind": "evacuate", "node": home,
+                                   "event": "node.fail"}])
+    stop(server, thread)
+    svc3.close()
     prom = parse_prometheus(metrics.get("prometheus", ""))
 
     # telemetry: the run's peaks against the job's digest and family
@@ -2140,6 +2203,17 @@ def phase_admission_daemon(cfg, policy, est, store_dir: str, capacity: int,
         and plan["stats"]["baseline_traces"] == 0,
         "residual_is_train_error": residual == reserved
         - decision.peak_bytes and residual_rel == rel_reserved,
+        "place_from_disk": bool(placed.get("placed"))
+        and placed["provenance"]["source"] == "disk"
+        and placed["provenance"]["trace_cache"]["misses"] == 0,
+        "place_charges_the_gates_threshold":
+        placed.get("safe_threshold") == decision.safe_threshold
+        == placed.get("shares", {}).get(home),
+        "evacuate_re_places_on_the_other_node": bool(evacuated.get("ok"))
+        and evacuated["displaced"] == evacuated.get("replaced")
+        == [place["id"]] and [n for n, v in evacuated["fleet"]["nodes"]
+                              .items() if place["id"] in v["residents"]]
+        == [n for n in evacuated["fleet"]["nodes"] if n != home],
     }
     emit("admission_daemon", config=cfg.name,
          n_layers=cfg.n_layers, batch=batch, capacity=capacity,
@@ -2158,9 +2232,213 @@ def phase_admission_daemon(cfg, policy, est, store_dir: str, capacity: int,
          telemetry={"model_digest": digest, "family": family,
                     "summary": summary, "residual_rel": residual_rel,
                     "train_rel_err_reserved": rel_reserved},
+         place={k: placed.get(k) for k in (
+             "placed", "kind", "nodes", "shares", "peak_bytes",
+             "safe_threshold", "rung", "provenance")},
+         evacuate={k: evacuated.get(k) for k in (
+             "node", "event", "displaced", "replaced", "lost", "wall_s")},
+         daemon_fleet=evacuated.get("fleet"),
          checks=checks, memory=device_memory())
     if not all(checks.values()):
         raise AssertionError(f"admission daemon: {checks}")
+
+
+def phase_fleet_colocate(est, gate: dict, workers: list) -> None:
+    """The fleet scheduler's placement on the card: ``FLEET_JOB``'s
+    arrivals A and B (``FLEET_BATCHES``) and C (the gate's admitted
+    batch), placed by the port's ``FleetScheduler`` over an
+    ``AdmissionService`` that shares this job's trace cache, on a fleet
+    whose ``node000`` is this card and ``node001``... are
+    ``FLEET_SIM_NODES`` other H100s at its capacity. That capacity, C2,
+    is what one process may hold while the processes that share the
+    card have their contexts open: ``workers`` (one for each of A and
+    B, started before this phase, each waiting on stdin) open theirs one
+    at a time, each answering the card's free memory, and the last one's
+    free memory plus what it holds is C2. The scheduler decides each
+    arrival at the best capacity its fleet can give and picks the nodes;
+    the phase fails unless two jobs land on ``node000``. Each of those
+    runs its 3 AdamW steps in a worker, both started at one barrier,
+    each held to its own estimate (``RESERVED_TOL``, ``ALLOCATED_TOL``)
+    with finite losses. While they run, ``node000`` fails in the
+    scheduler's books, on the CPU: every displaced job is re-placed or
+    accounted lost, the invariant holds, and the node is restored. No
+    decision may trace."""
+    import math
+
+    import torch
+    from repro_torch.launch import served
+    from repro_torch.sched import FleetScheduler, build_fleet
+    from repro_torch.service import AdmissionService
+
+    arch = TRAIN_JOBS[FLEET_JOB][0]
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    # a worker that fails or hangs fails the phase: at the deadline every
+    # worker is killed, and the reads below see their pipes close
+    watchdog = threading.Timer(FLEET_TIMEOUT_S,
+                               lambda: [w.kill() for w in workers])
+    watchdog.start()
+
+    def tell(w, line: str) -> None:
+        w.stdin.write(line + "\n")
+        w.stdin.flush()
+
+    def answer(w) -> dict:
+        while True:
+            line = w.stdout.readline()
+            if not line:
+                raise AssertionError(f"fleet worker {w.pid} ended: exit "
+                                     f"{w.wait()}")
+            if line.startswith("fleet "):
+                return json.loads(line[len("fleet "):])
+            print(line, end="", file=sys.stderr)
+
+    try:
+        free0 = torch.cuda.mem_get_info()[0]
+        ups = []
+        for w in workers:       # one context at a time: each one's bytes
+            tell(w, "ctx")
+            ups.append(answer(w))
+        capacity, total = ups[-1]["capacity"], ups[-1]["total"]
+        frees = [free0] + [u["free"] for u in ups]
+        contexts = [a - b for a, b in zip(frees, frees[1:])]
+
+        misses0 = est.trace_cache.stats()["misses"]
+        service = AdmissionService(workers=1, cache=est.trace_cache)
+        fleet = build_fleet(1 + FLEET_SIM_NODES, capacity)
+        sched = FleetScheduler(service, fleet)
+        batches = {**FLEET_BATCHES, "C": gate["batch"]}
+        outs = {name: sched.place(served.build_fleet_arrival({
+            "arch": arch, "smoke": False, "seq": TRAIN_SEQ, "batch": b,
+            "hbm_gib": capacity / 2**30, "id": name}))
+            for name, b in batches.items()}
+        placements = {name: out.to_json() for name, out in outs.items()}
+        on_card = [a.job_id for a in fleet.residents("node000")]
+        if len(on_card) != len(workers):
+            emit("fleet_colocate", capacity=capacity, placements=placements,
+                 fleet=fleet.snapshot())
+            raise AssertionError(f"fleet: the scheduler put {on_card} on "
+                                 f"the card's node, not two jobs")
+        for w, name in zip(workers, on_card):
+            tell(w, f"run {batches[name]}")
+        for w in workers:
+            answer(w)           # its parameters are on the card
+        t_steps = time.perf_counter()
+        for w in workers:       # the barrier: every worker starts now
+            tell(w, "start")
+        charged = fleet.committed("node000")
+        # while they run, the card's node fails in the scheduler's books
+        # (on the CPU; the card's jobs run on): its jobs move
+        evac = sched.evacuate_node("node000", "node.fail")
+        fleet.check_invariant()
+        moved = {j: sorted(fleet.assignments[j].shares)
+                 for j in evac.replaced}
+        fleet.restore("node000")
+        fleet.check_invariant()
+        runs = [answer(w) for w in workers]
+        steps_s = time.perf_counter() - t_steps
+        for w in workers:
+            if w.wait(timeout=60) != 0:
+                raise AssertionError(f"fleet worker {w.pid}: exit "
+                                     f"{w.returncode}")
+    finally:
+        watchdog.cancel()
+        for w in workers:
+            if w.poll() is None:
+                w.kill()
+                w.wait()
+
+    jobs, errors = {}, []
+    for name, run in zip(on_card, runs):
+        d = outs[name].decision
+        rel_reserved = (d.peak_bytes - run["reserved"]) / run["reserved"]
+        rel_allocated = ((d.peak_tensor_bytes - run["allocated"])
+                         / run["allocated"])
+        jobs[name] = {"batch": batches[name],
+                      "charged": outs[name].assignment.shares["node000"],
+                      "estimate": d.peak_bytes,
+                      "tensor_estimate": d.peak_tensor_bytes,
+                      "safe_threshold": d.safe_threshold,
+                      "source": d.provenance["source"],
+                      **run, "rel_err_reserved": rel_reserved,
+                      "rel_err_allocated": rel_allocated}
+        if not all(math.isfinite(x) for x in run["losses"]):
+            errors.append(f"{name}: non-finite loss {run['losses']}")
+        for what, rel, tol in (("reserved", rel_reserved, RESERVED_TOL),
+                               ("allocated", rel_allocated, ALLOCATED_TOL)):
+            if abs(rel) > tol:
+                errors.append(f"{name}: {what} error {rel:+.4%} over "
+                              f"{tol:.0%}")
+    reserved_sum = sum(j["reserved"] for j in jobs.values())
+    fresh = est.trace_cache.stats()["misses"] - misses0
+    service.close()
+    checks = {
+        "two_on_the_card": len(on_card) == 2,
+        "c_elsewhere": "C" not in on_card,
+        "jobs_hold": not errors,
+        "displaced_accounted": set(evac.displaced)
+        == set(evac.replaced) | set(evac.lost)
+        and set(evac.displaced) == set(on_card),
+        "no_fresh_traces": fresh == 0,
+    }
+    emit("fleet_colocate", config=arch, seq_len=TRAIN_SEQ,
+         steps=TRAIN_STEPS, capacity=capacity, total_memory=total,
+         contexts_bytes=total - capacity, worker_context_bytes=contexts,
+         worker_up=ups, placements=placements, on_card=on_card, jobs=jobs,
+         reserved_sum=reserved_sum, headroom=capacity - reserved_sum,
+         charged=charged,
+         steps_s=steps_s, evacuation=evac.to_json(), moved=moved,
+         fresh_traces=fresh, stats=sched.stats(), checks=checks,
+         errors=errors, seconds=time.perf_counter() - t0,
+         memory=device_memory())
+    if not all(checks.values()):
+        raise AssertionError(f"fleet_colocate: {checks} {errors}")
+
+
+def colocate_worker(job: str) -> None:
+    """One job of ``fleet_colocate`` on the card, in a process of its
+    own with a CUDA context of its own, driven by lines on stdin and
+    answering each with a ``fleet {json}`` line: ``ctx`` opens the
+    context (answers the card's free and total memory and this
+    process's capacity, free plus reserved); ``run B`` puts ``job``'s
+    parameters on the card for batch B (answers when they are there);
+    ``start`` runs the 3 AdamW steps inside the training measurement
+    (answers the losses, step times, ``max_memory_reserved`` and
+    ``max_memory_allocated``). It exits non-zero on anything else,
+    including the end of its input."""
+    import torch
+    from repro_torch.configs.base import smoke_shape
+    from repro_torch.launch import serve as srv
+    from repro_torch.launch import train as trn
+    from repro_torch.models import model as M
+
+    def expect(word: str) -> list:
+        line = sys.stdin.readline().split()
+        if not line or line[0] != word:
+            raise AssertionError(f"fleet worker: expected {word!r}, got "
+                                 f"{line}")
+        return line[1:]
+
+    def say(**kw) -> None:
+        print("fleet " + json.dumps(kw), flush=True)
+
+    arch, n_layers, _ = TRAIN_JOBS[job]
+    cfg = path_config(arch, n_layers)
+    expect("ctx")
+    torch.cuda.synchronize()            # opens this process's context
+    free, total = torch.cuda.mem_get_info()
+    say(free=free, total=total, capacity=srv.device_capacity())
+    (batch,) = expect("run")
+    params = M.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    say(ready=True)
+    expect("start")
+    got = trn.train_loop(cfg, smoke_shape(TRAIN_SEQ, int(batch)),
+                         train_policy(job), steps=TRAIN_STEPS, device="cuda",
+                         params=params)
+    say(losses=got.out.losses, step_s=got.out.step_s, reserved=got.reserved,
+        allocated=got.allocated, alloc_retries=got.n_alloc_retries,
+        memory=device_memory())
 
 
 def gate_only_estimate(cfg, policy, batch: int, est) -> dict:
@@ -2336,6 +2614,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--serve-plan"] and len(sys.argv) == 3:
         phase_serve_plan(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--colocate-worker"] and len(sys.argv) == 3:
+        colocate_worker(sys.argv[2])
         return 0
     # each training job gets a process of its own, as it would: a fresh
     # allocator whose first iteration makes cuBLAS's workspaces. They

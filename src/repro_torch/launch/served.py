@@ -41,6 +41,16 @@ Request kinds:
   "hbm_gib":0.05}``: the request-driven serving gate for the mix, with
   ranked serving counter-offers on a rejection when a grid key is
   given;
+* ``place`` — the same job fields as ``train`` plus ``"priority"``,
+  ``"family"`` and ``"duration_ticks"``: the daemon's fleet scheduler
+  (``repro_torch.sched``) decides the job at the best capacity its
+  fleet can give and places it (best fit, then priority preemption);
+  the answer carries the placement, the decision's provenance and the
+  fleet's snapshot;
+* ``evacuate`` — ``{"kind":"evacuate","node":"node001","event":
+  "node.fail"|"node.flap"|"node.shrink"|"restore","shrink_frac":0.5}``:
+  a fault on one node of the fleet and where its displaced jobs went
+  (``restore`` brings the node back);
 * ``stats`` / ``ping`` / ``shutdown`` / ``metrics`` (the registry as
   JSON and Prometheus text);
 * ``health`` — degradation/robustness diagnostics: rung counters,
@@ -50,12 +60,17 @@ Request kinds:
 Without ``hbm_gib`` a request is decided at the capacity of the
 daemon's device (``--device``, default ``cuda``: what the card's
 caching allocator can hold); a daemon on the CPU (``--device cpu``), or
-a request with ``"device": "cpu"``, must give ``hbm_gib``.
+a request with ``"device": "cpu"``, must give ``hbm_gib``. The fleet
+(built on the first ``place``/``evacuate`` request) has
+``--fleet-nodes`` nodes (a request's ``fleet_nodes``; default 4) of
+``--fleet-hbm-gib`` GiB each (a request's ``fleet_hbm_gib``), else of
+the daemon's card's capacity; on the CPU the flag or the request must
+give it.
 
-Not ported yet, each answered with a structured ``{"ok": false, "kind":
-"error"}`` naming its slice: the ``place`` and ``evacuate`` kinds (the
-fleet scheduler), and a ``plan`` request's ``devices`` or
-``pad_vocab_multiple`` (the planner's mesh axes), slice 11.
+Not ported yet, answered with a structured ``{"ok": false, "kind":
+"error"}`` naming its slice: a ``plan`` request's ``devices`` or
+``pad_vocab_multiple`` (the planner's mesh axes, slice 11c; the
+planner's error names slice 11).
 
 Hardening: request lines are length-bounded (oversized or malformed
 lines get a structured ``{"kind": "error"}`` response and the
@@ -83,15 +98,11 @@ from ..configs.base import TRAIN_4K, smoke_shape
 from ..core.events import MemorySpace
 from ..core.orchestrator import OffloadPlan, ServingKnobs
 from ..plan import PlanSpace, RemediationPlanner
-from ..service import AdmissionService
+from ..sched import FleetScheduler, build_fleet
+from ..service import AdmissionService, JobArrival
 from ..train import TrainPolicy
 from .serve import device_capacity, parse_mix, pick_batch, pick_serving
 from .train import train_request
-
-#: wire kinds that wait for a later slice of the port: kind -> (what, slice)
-NOT_PORTED = {"place": ("fleet placement (sched/)", 11),
-              "evacuate": ("fleet evacuation (sched/)", 11)}
-
 
 def _train_job(d: dict):
     """(cfg, policy, shape) from a wire-level train-job description,
@@ -159,6 +170,47 @@ def build_train_request(d: dict, device: str = "cuda"):
         offload=build_offload_plan(d))
     req.job_id = str(d.get("id", f"{d['arch']}-b{shape.global_batch}"))
     return req
+
+
+def build_fleet_arrival(d: dict, device: str = "cuda") -> JobArrival:
+    """JobArrival (fleet placement) from a wire-level train job."""
+    req = build_train_request(d, device)
+    duration = d.get("duration_ticks")
+    return JobArrival(
+        req.job_id, req.fwd_bwd_fn, req.params, req.batch,
+        update_fn=req.update_fn, opt_init_fn=req.opt_init_fn,
+        capacity=req.capacity, deadline_s=req.deadline_s,
+        family=str(d.get("family", d.get("arch", "workload"))),
+        priority=int(d.get("priority", 0)),
+        duration_ticks=int(duration) if duration is not None else None)
+
+
+def fleet_scheduler(service, d: dict, server=None,
+                    device: str = "cuda") -> FleetScheduler:
+    """The daemon's fleet scheduler, built lazily on the first
+    ``place``/``evacuate`` request — sized by the server's
+    ``--fleet-nodes``/``--fleet-hbm-gib`` flags, overridable by
+    ``fleet_nodes``/``fleet_hbm_gib`` on that first request; without a
+    size, each node has the capacity of the daemon's card (on the CPU
+    there is none, and the request is an error). Shared (and internally
+    locked) across all daemon connections."""
+    sched = getattr(service, "_fleet_scheduler", None)
+    if sched is None:
+        n = int(d.get("fleet_nodes",
+                      getattr(server, "fleet_nodes", None) or 4))
+        hbm = d.get("fleet_hbm_gib", getattr(server, "fleet_hbm_gib", None))
+        if hbm is not None:
+            capacity = int(float(hbm) * 2**30)
+        elif torch.device(device).type == "cuda":
+            capacity = device_capacity(device)
+        else:
+            raise ValueError(f"a fleet on {device!r} needs fleet_hbm_gib "
+                             f"(the CPU has no card to read a capacity "
+                             f"from)")
+        sched = FleetScheduler(service, build_fleet(n, capacity),
+                               obs=service.obs)
+        service._fleet_scheduler = sched
+    return sched
 
 
 def build_plan_space(d: dict) -> PlanSpace:
@@ -232,11 +284,6 @@ def handle_request(service, d: dict, server=None,
                     "prometheus": reg.to_prometheus()}
         if kind == "shutdown":
             return {"ok": True, "shutdown": True}
-        if kind in NOT_PORTED:
-            what, slice_no = NOT_PORTED[kind]
-            raise NotImplementedError(
-                f"the {kind!r} kind needs {what}, which is not ported "
-                f"yet (slice {slice_no} of the port)")
         if kind == "train":
             decision = service.decide(build_train_request(d, device))
             return {"ok": True, **decision.to_json()}
@@ -247,6 +294,25 @@ def handle_request(service, d: dict, server=None,
                 space=build_plan_space(d),
                 job_id=str(d.get("id", f"{d['arch']}-plan")))
             return {"ok": True, **res.to_json()}
+        if kind == "place":
+            sched = fleet_scheduler(service, d, server, device)
+            out = sched.place(build_fleet_arrival(d, device))
+            prov = (out.decision.provenance if out.decision is not None
+                    else None)
+            return {"ok": True, **out.to_json(), "provenance": prov,
+                    "fleet": sched.fleet.snapshot()}
+        if kind == "evacuate":
+            sched = fleet_scheduler(service, d, server, device)
+            node = str(d["node"])
+            event = str(d.get("event", "node.fail"))
+            if event == "restore":
+                sched.fleet.restore(node)
+                return {"ok": True, "node": node, "event": "restore",
+                        "fleet": sched.fleet.snapshot()}
+            out = sched.evacuate_node(
+                node, event, shrink_frac=float(d.get("shrink_frac", 0.5)))
+            return {"ok": True, **out.to_json(),
+                    "fleet": sched.fleet.snapshot()}
         if kind == "serve_plan":
             arch = d["arch"]
             cfg = (get_smoke(arch) if d.get("smoke", True)
@@ -394,10 +460,14 @@ class AdmissionServer(socketserver.ThreadingTCPServer):
 
     def __init__(self, addr, service, *, read_timeout: float = 60.0,
                  max_line_bytes: int = 1 << 20, max_in_flight: int = 8,
-                 faults=None, device: str = "cuda"):
+                 faults=None, device: str = "cuda",
+                 fleet_nodes: int | None = None,
+                 fleet_hbm_gib: float | None = None):
         super().__init__(addr, _Handler)
         self.service = service
         self.device = device
+        self.fleet_nodes = fleet_nodes
+        self.fleet_hbm_gib = fleet_hbm_gib
         self.read_timeout = float(read_timeout)
         self.max_line_bytes = int(max_line_bytes)
         self.max_in_flight = int(max_in_flight)
@@ -510,6 +580,12 @@ def main(argv=None) -> int:
     ap.add_argument("--max-in-flight", type=int, default=8,
                     help="max concurrently-executing requests before "
                          "answering 'overloaded'")
+    ap.add_argument("--fleet-nodes", type=int, default=None,
+                    help="fleet size for 'place'/'evacuate' requests "
+                         "(default 4)")
+    ap.add_argument("--fleet-hbm-gib", type=float, default=None,
+                    help="per-node memory (GiB) for the fleet scheduler; "
+                         "default the capacity of --device's card")
     ap.add_argument("--metrics", action="store_true",
                     help="enable observability (spans + correlation "
                          "IDs); the 'metrics' wire kind serves the "
@@ -530,6 +606,9 @@ def main(argv=None) -> int:
     try:
         if args.once:
             d = json.loads(sys.stdin.readline())
+            for key in ("fleet_nodes", "fleet_hbm_gib"):
+                if getattr(args, key) is not None:
+                    d.setdefault(key, getattr(args, key))
             print(json.dumps(handle_request(service, d,
                                             device=args.device)))
             return 0
@@ -537,7 +616,9 @@ def main(argv=None) -> int:
                              read_timeout=args.read_timeout,
                              max_line_bytes=args.max_line_bytes,
                              max_in_flight=args.max_in_flight,
-                             device=args.device) as server:
+                             device=args.device,
+                             fleet_nodes=args.fleet_nodes,
+                             fleet_hbm_gib=args.fleet_hbm_gib) as server:
             host, port = server.server_address[:2]
             store = f", store={args.store_dir}" if args.store_dir else ""
             print(f"[served] admission daemon on {host}:{port} "

@@ -22,8 +22,10 @@ service:
   service to schedulers.
 
 Counter-offers come from the remediation planner
-(:mod:`repro_torch.plan`); the fleet scheduler and sharded estimates
-come with ``sched/`` and ``distributed/`` (slice 11 of the port).
+(:mod:`repro_torch.plan`); the fleet scheduler over this service is
+:mod:`repro_torch.sched`. Sharded estimates (``distributed/``), the
+mesh parts and the scheduler's elastic re-placement are slice 11c of
+the port.
 """
 from .admission import (AdmissionDecision, AdmissionRequest,  # noqa: F401
                         AdmissionService)

@@ -8,7 +8,8 @@ the global batch is preserved by resizing each replica's share
 reference's ``shrink_and_replan`` (``ElasticReplan``) re-admits the job
 on the re-carved mesh with spec-driven per-device shard factors; it
 needs the sharding module and the planner's mesh axes, which are not
-ported (slice 11 of the port).
+ported (slice 11c of the port; ``sched/`` is ported, and its
+re-placement of a displaced job that carries a plan raises until then).
 
 Deterministic shard assignment means any spare worker can recompute a
 slow worker's shard; ``StragglerMonitor`` is the detection half: each

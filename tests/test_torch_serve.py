@@ -117,8 +117,9 @@ print("N", sum(n.startswith("repro_torch") for n in sys.modules))
 print("HAVE", sorted(n for n in sys.modules if n.startswith("repro_torch.")))
 """
 
-# the training, MoE, VLM/audio, baselines, sweep, admission-service and
-# planner slices' modules, which the walk above must have imported
+# the training, MoE, VLM/audio, baselines, sweep, admission-service,
+# planner and fleet-scheduler slices' modules, which the walk above must
+# have imported
 _TRAINING_MODULES = (
     "repro_torch.plan", "repro_torch.plan.cost", "repro_torch.plan.planner",
     "repro_torch.service", "repro_torch.service.admission",
@@ -138,7 +139,9 @@ _TRAINING_MODULES = (
     "repro_torch.core.baselines.tensorsum",
     "repro_torch.core.baselines.dnnmem",
     "repro_torch.core.baselines.schedtune",
-    "repro_torch.core.baselines.directprobe")
+    "repro_torch.core.baselines.directprobe",
+    "repro_torch.sched", "repro_torch.sched.fleet",
+    "repro_torch.sched.scheduler", "repro_torch.sched.simulator")
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
@@ -147,7 +150,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120, check=True).stdout
     assert "BAD []" in out
-    assert int(out.split("N ")[1].split()[0]) >= 28
+    assert int(out.split("N ")[1].split()[0]) >= 32
     have = out.split("HAVE ")[1]
     assert all(repr(m) in have for m in _TRAINING_MODULES)
 

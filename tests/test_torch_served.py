@@ -6,10 +6,12 @@
 * A socket round trip, and the reference's hardening cases: malformed
   and oversized lines, backpressure, draining, health over the wire, a
   socket fault, the wire deadline.
-* ``place``, ``evacuate`` and a ``plan`` request's mesh axis answer a
-  structured error naming their slice; a ``train`` request's
-  ``offload`` object answers with per-space peaks, a malformed one with
-  a structured error.
+* ``place`` and ``evacuate`` (with ``restore``) answer the reference
+  daemon's shape, directly and over the socket on the server's fleet;
+  a fleet on the CPU without a capacity is a structured error.
+* A ``plan`` request's mesh axis answers a structured error naming its
+  slice; a ``train`` request's ``offload`` object answers with
+  per-space peaks, a malformed one with a structured error.
 * ``--once`` reads one request from stdin; ``serve_mix_main`` exits 0
   when the mix fits and 2 when it does not.
 """
@@ -96,8 +98,7 @@ def test_serve_answer_is_the_serving_gate():
     svc.close()
 
 
-@pytest.mark.parametrize("kind,slice_no", [("plan", 11), ("place", 11),
-                                           ("evacuate", 11)])
+@pytest.mark.parametrize("kind,slice_no", [("plan", 11)])
 def test_kinds_of_later_slices_answer_a_structured_error(kind, slice_no):
     svc = _svc()
     # a plan request answers; its mesh axis is slice 11's
@@ -107,6 +108,73 @@ def test_kinds_of_later_slices_answer_a_structured_error(kind, slice_no):
     assert f"slice {slice_no}" in resp["error"]
     assert "NotImplementedError" in resp["error"]
     svc.close()
+
+
+FLEET = dict(TRAIN, kind="place", fleet_nodes=3, fleet_hbm_gib=GIB)
+
+
+def test_place_and_evacuate_answer_the_references_shape():
+    from repro.core.cache import TraceCache as JTraceCache
+    from repro.launch import served as jserved
+    from repro.service import AdmissionService as JAdmissionService
+    svc, jsvc = _svc(), JAdmissionService(workers=1, cache=JTraceCache())
+    try:
+        r1 = served.handle_request(svc, dict(FLEET, id="a"), device="cpu")
+        r2 = served.handle_request(svc, dict(FLEET, id="b"), device="cpu")
+        assert r1["ok"] and r1["placed"] and r1["nodes"]
+        assert r2["ok"] and r2["placed"]
+        home = r1["nodes"][0]
+        assert r1["fleet"]["nodes"][home]["committed"] \
+            == r1["safe_threshold"] > 0
+        assert r1["provenance"]["source"] == "traced"
+        assert r2["provenance"]["source"] == "memory"
+        r3 = served.handle_request(svc, {"kind": "evacuate", "node": home,
+                                         "event": "node.flap"},
+                                   device="cpu")
+        assert r3["ok"]
+        assert set(r3["displaced"]) == set(r3["replaced"]) | set(r3["lost"])
+        assert r3["fleet"]["nodes"][home]["state"] == "down"
+        r4 = served.handle_request(svc, {"kind": "evacuate", "node": home,
+                                         "event": "restore"}, device="cpu")
+        assert r4["fleet"]["nodes"][home]["state"] == "up"
+        for r in (r1, r2, r3, r4):
+            json.dumps(r)           # wire responses stay JSON-safe
+        # the reference daemon's answers to the same requests: the same
+        # keys (the port's place answer adds the decision's provenance)
+        # and the same fleet
+        ref = [jserved.handle_request(jsvc, d) for d in (
+            dict(FLEET, id="a"), dict(FLEET, id="b"),
+            {"kind": "evacuate", "node": home, "event": "node.flap"},
+            {"kind": "evacuate", "node": home, "event": "restore"})]
+        assert set(r1) == set(ref[0]) | {"provenance"}
+        assert [r["nodes"] for r in (r1, r2)] \
+            == [r["nodes"] for r in ref[:2]]
+        assert {k for k in r3 if k != "wall_s"} \
+            == {k for k in ref[2] if k != "wall_s"}
+        assert [(r3[k], r4.get(k)) for k in ("displaced", "replaced")] \
+            == [(ref[2][k], ref[3].get(k)) for k in ("displaced", "replaced")]
+        assert set(r4) == set(ref[3])
+        assert r4["fleet"]["nodes"].keys() == ref[3]["fleet"]["nodes"].keys()
+    finally:
+        svc.close()
+        jsvc.close()
+
+
+def test_a_fleet_on_the_cpu_needs_a_capacity():
+    svc = _svc()
+    try:
+        d = dict(FLEET)
+        del d["fleet_hbm_gib"]
+        for req in (d, {"kind": "evacuate", "node": "node000"}):
+            resp = served.handle_request(svc, req, device="cpu")
+            assert resp == {"ok": False, "kind": "error",
+                            "error": resp["error"]}
+            assert "fleet_hbm_gib" in resp["error"]
+        # the request's capacity is not the fleet's
+        assert not served.handle_request(svc, dict(d, hbm_gib=1.0),
+                                         device="cpu")["ok"]
+    finally:
+        svc.close()
 
 
 def test_offload_answers_a_structured_error():
@@ -185,6 +253,27 @@ def test_socket_round_trip_and_the_wire_kinds():
         assert parsed["xmem_service_requests_total"] == 1.0
         assert metrics["metrics"]["counters"][
             "xmem_service_requests_total"] == 1
+    finally:
+        _stop(server, svc)
+
+
+def test_place_and_evacuate_over_the_socket_on_the_servers_fleet():
+    server, svc = _server(fleet_nodes=2, fleet_hbm_gib=GIB)
+    try:
+        place = {k: v for k, v in FLEET.items()
+                 if k not in ("fleet_nodes", "fleet_hbm_gib")}
+        placed, = _lines(server, [place])
+        assert placed["ok"] and placed["nodes"] == ["node000"]
+        assert sorted(placed["fleet"]["nodes"]) == ["node000", "node001"]
+        assert placed["fleet"]["nodes"]["node000"]["capacity"] \
+            == int(GIB * 2**30)
+        evac, back = _lines(server, [
+            {"kind": "evacuate", "node": "node000", "event": "node.fail"},
+            {"kind": "evacuate", "node": "node000", "event": "restore"}])
+        assert evac["displaced"] == evac["replaced"] == [placed["job_id"]]
+        assert evac["fleet"]["nodes"]["node001"]["residents"] \
+            == [placed["job_id"]]
+        assert back["fleet"]["nodes"]["node000"]["state"] == "up"
     finally:
         _stop(server, svc)
 
