@@ -107,7 +107,23 @@ non-zero:
    microbatch and remat axes, host offload), every candidate listed,
    each offer the port's step can run held to the card's truth at its
    batch or, for the cheapest without one, run for 3 steps (batch 8 at
-   4 microbatches), each offer's request decided again to the byte;
+   4 microbatches), each offer's request decided again to the byte; its
+   topology axis (2 and 4 devices) replays the gate's traces, and each
+   topology offer is held to ``dense_mesh_sweep``'s row to the byte;
+   ``dense_mesh_sweep`` before it: the admission service's mesh sweep
+   of the gate's rejected batch over every topology of 2 and 4 devices
+   at the card's capacity (each per-device estimate, persistent and
+   injected collective bytes, fit), from the gate's cached trace; and
+   ``dense_mesh``: rank 0 of two of those topologies that fit (the
+   fewest devices, then the lowest peak; one with model > 1) and whose
+   specs a single-device job can express (no fsdp; no state sharded
+   over data), each run as the single-device job Megatron TP gives rank
+   0 (heads, kv heads, d_ff and vocab over ``model``, the batch over
+   pod x data; ``rank_local_job`` checks every leaf's spec), 3 AdamW
+   steps, the sweep's per-device estimate and the port's estimate of
+   the rank-local job (traced ahead) beside the card's peaks, and each
+   data-parallel topology's estimate beside the 1-device peak of its
+   rank's batch where this process measured one;
 9a. dense_sgd_train — the same job with SGD (``--train dense_sgd``):
    the paper's optimizer axis, where DNNMem's estimate stays put;
 10. moe_train — the same in a child of its own (``--train moe``) for
@@ -277,6 +293,17 @@ SERVING_KV_BYTES = (1, 2)
 # the batch at 2 and 4 microbatches) traced ahead with the gate's
 PLAN_MICROBATCHES = (2, 4)
 PLAN_OFFLOAD_ACTIVATIONS = (0.5,)
+# the dense job's mesh sweep (``dense_mesh_sweep``, the planner's
+# topology axis in ``plan_offers``) over every topology of these device
+# counts, and the grid swept as well when no two of those fit
+DENSE_MESH_DEVICES = (2, 4)
+DENSE_MESH_FALLBACK_DEVICES = (8,)
+# the rank-local runs of ``dense_mesh``; the capacity the dense child's
+# gate reads on an H100 80GB HBM3 beside the other processes' contexts,
+# used only to choose ahead of its turn which rank-local jobs to trace:
+# the turn chooses again at the capacity it reads
+DENSE_MESH_RUNS = 2
+DENSE_MESH_CAPACITY_AHEAD = 83_454_525_440
 # the serving search (``serve_plan``, a process of its own): a burst of
 # SERVE_PLAN_REQUESTS requests of PROMPT_LEN + DECODE_TOKENS positions,
 # all queued at tick 0 (a batch-inference job's prompts), at page 16,
@@ -1361,8 +1388,9 @@ def phase_train(job: str, rows_path: str) -> None:
         fwd_s[b] = time.perf_counter() - t0
         est.trace_phases(fwd_bwd, params, specs, update, opt_init)
         trace_s[b] = time.perf_counter() - t0
-    plan_ahead_s = {}
+    plan_ahead_s, mesh_ahead = {}, {}
     if job == "dense":
+        mesh_ahead = dense_mesh_ahead(cfg, policy, est, candidates[0])
         # the remediation search's microbatch candidates at the gate's
         # first batch: each a program of its own (f32 gradient sums)
         specs = input_specs(cfg, smoke_shape(TRAIN_SEQ, candidates[0]))
@@ -1469,8 +1497,11 @@ def phase_train(job: str, rows_path: str) -> None:
                        if not c["fits"]})
         phase_admission_degraded(cfg, policy, est, service, capacity,
                                  truths)
+        mesh = phase_dense_mesh_sweep(cfg, policy, service, capacity, gate)
         phase_plan_offers(cfg, policy, service, capacity, gate, truths,
-                          plan_ahead_s)
+                          plan_ahead_s, mesh)
+        phase_dense_mesh(cfg, policy, est, service, capacity, gate, mesh,
+                         mesh_ahead, truths)
     if job == FLEET_JOB:
         # the workers import while the daemon phase runs on the CPU; each
         # waits on stdin, and exits when this process does
@@ -1833,7 +1864,7 @@ class _RecordingService:
     planner's candidates, feasible or not)."""
 
     def __init__(self, service):
-        self.service, self.decisions = service, {}
+        self.service, self.decisions, self.sweeps = service, {}, []
         self.cache, self.obs = service.cache, service.obs
 
     def decide(self, req):
@@ -1846,23 +1877,309 @@ class _RecordingService:
         self.decisions.update((r.job_id, (r, d)) for r, d in zip(reqs, out))
         return out
 
+    def mesh_sweep(self, *args, **kw):
+        self.sweeps.append(self.service.mesh_sweep(*args, **kw))
+        return self.sweeps[-1]
+
+
+def mesh_grid(devices) -> list:
+    from repro_torch.core.sweep import topology_grid
+    return [t for n in devices for t in topology_grid(n)]
+
+
+def collective_bytes(rep) -> dict:
+    """The staging buffers the mesh sweep injected into a report's first
+    iteration, by name (per device)."""
+    from repro_torch.core.events import BlockKind
+    return {b.scope: b.size for b in rep.composition.prefix
+            if b.block_kind is BlockKind.COLLECTIVE}
+
+
+def rank_local_job(cfg, topo, global_batch: int):
+    """(config, batch) of rank 0's share of ``cfg`` at ``global_batch``
+    on ``topo``, run as a single-device job: Megatron tensor
+    parallelism's rank-local tensors are the model's with heads, kv
+    heads, d_ff and vocab divided by ``model``, at the batch over
+    pod x data. Raises ``ValueError`` for a topology whose specs that
+    job cannot express: fsdp; a dim the rule engine left replicated (a
+    divisibility fallback); an optimizer state the rule engine shards
+    over a data axis (``opt_spec_for_shape`` does so without fsdp, as
+    ZeRO-1 would), which a single-device job holds whole. Every
+    parameter leaf's spec is checked against the rank-local leaf's
+    shape, and its optimizer state's spec for axes other than model."""
+    from repro_torch.distributed.sharding import (batch_spec_for_shape,
+                                                  opt_spec_for_shape,
+                                                  spec_factor,
+                                                  spec_for_path)
+    from repro_torch.models import model as M
+    from torch.utils import _pytree as pytree
+    if topo.fsdp:
+        raise ValueError(f"{topo.label}: fsdp shards the parameters' "
+                         f"largest dims, which no single-device job has")
+    m, replicas = topo.model, topo.pod * topo.data
+    dims = {k: getattr(cfg, k) for k in ("n_heads", "n_kv_heads", "d_ff",
+                                         "vocab")}
+    if any(v % m for v in dims.values()) or global_batch % replicas:
+        raise ValueError(f"{topo.label}: {dims} or batch {global_batch} "
+                         f"does not divide")
+    local = dataclasses.replace(cfg, **{k: v // m for k, v in dims.items()})
+    sizes, pol = topo.axis_sizes, topo.sharding_policy()
+
+    def leaves(c):
+        flat, _ = pytree.tree_flatten_with_path(M.abstract_params(c))
+        return {pytree.keystr(k): tuple(x.shape) for k, x in flat}
+    glob, loc = leaves(cfg), leaves(local)
+    if glob.keys() != loc.keys():
+        raise ValueError(f"{topo.label}: the rank-local tree differs")
+    for path, shape in glob.items():
+        spec = tuple(spec_for_path(path, shape, sizes, pol))
+        spec += (None,) * (len(shape) - len(spec))
+        if any(e not in (None, pol.model_axis) for e in spec):
+            raise ValueError(f"{topo.label}: {path} spec {spec}")
+        want = tuple(d // m if e else d for d, e in zip(shape, spec))
+        if loc[path] != want:
+            raise ValueError(f"{topo.label}: {path} spec {spec} gives "
+                             f"{want}, the rank-local job {loc[path]}")
+        opt = [e for e in opt_spec_for_shape(shape, sizes, pol)
+               if e not in (None, pol.model_axis)]
+        if any(sizes[a] > 1 for e in opt
+               for a in (e if isinstance(e, tuple) else (e,))):
+            raise ValueError(f"{topo.label}: {path}'s optimizer state "
+                             f"shards over {opt}")
+    bshape = (global_batch, TRAIN_SEQ)
+    if spec_factor(batch_spec_for_shape(bshape, sizes, pol), bshape,
+                   sizes) != replicas:
+        raise ValueError(f"{topo.label}: the batch does not shard "
+                         f"{replicas} ways")
+    return local, global_batch // replicas
+
+
+def expressible(cfg, topo, global_batch: int) -> bool:
+    """Whether ``rank_local_job`` can run rank 0 of ``topo``."""
+    try:
+        rank_local_job(cfg, topo, global_batch)
+    except ValueError:
+        return False
+    return True
+
+
+def pick_mesh_runs(cfg, rows, capacity: int, global_batch: int) -> list:
+    """``DENSE_MESH_RUNS`` topologies whose rank 0 ``rank_local_job``
+    can run (no fsdp, no state sharded over data) and whose per-device
+    estimate fits ``capacity`` (not out of memory, peak within it): the
+    fewest devices, then the lowest peak, one of them with model > 1."""
+    fits = sorted(((t, r) for t, r in rows if not r.oom
+                   and r.peak_bytes <= capacity
+                   and expressible(cfg, t, global_batch)),
+                  key=lambda tr: (tr[0].n_devices, tr[1].peak_bytes))
+    picks = fits[:DENSE_MESH_RUNS]
+    if picks and not any(t.model > 1 for t, _ in picks):
+        tp = next(((t, r) for t, r in fits if t.model > 1), None)
+        picks = picks[:-1] + [tp] if tp is not None else []
+    return picks if len(picks) == DENSE_MESH_RUNS else []
+
+
+def dense_mesh_ahead(cfg, policy, est, b0: int) -> dict:
+    """Before the dense job's turn, on the CPU: the mesh sweep of the
+    gate's first candidate replayed unbounded from the traces made
+    ahead, the runs ``pick_mesh_runs`` would choose at
+    ``DENSE_MESH_CAPACITY_AHEAD``, and their rank-local jobs traced."""
+    from repro_torch.configs.base import smoke_shape
+    from repro_torch.configs.registry import input_specs
+    from repro_torch.core.sweep import SweepService
+    from repro_torch.models import model as M
+    from repro_torch.train import make_estimator_hooks
+    fwd, upd, init = make_estimator_hooks(cfg, policy)
+    t0 = time.perf_counter()
+    res = SweepService(est).estimate_mesh_sweep(
+        fwd, M.abstract_params(cfg), input_specs(
+            cfg, smoke_shape(TRAIN_SEQ, b0)), mesh_grid(DENSE_MESH_DEVICES),
+        update_fn=upd, opt_init_fn=init, cfg=cfg)
+    picks = pick_mesh_runs(cfg, res, DENSE_MESH_CAPACITY_AHEAD, b0)
+    out = {"sweep_s": time.perf_counter() - t0, "traced_s": {},
+           "picks": [t.label for t, _ in picks]}
+    for topo, _ in picks:
+        local, lb = rank_local_job(cfg, topo, b0)
+        f, u, i = make_estimator_hooks(local, policy)
+        t0 = time.perf_counter()
+        est.trace_phases(f, M.abstract_params(local),
+                         input_specs(local, smoke_shape(TRAIN_SEQ, lb)), u, i)
+        out["traced_s"][topo.label] = time.perf_counter() - t0
+    return out
+
+
+def phase_dense_mesh_sweep(cfg, policy, service, capacity: int, gate: dict):
+    """The admission service's mesh sweep of the gate's rejected batch
+    over every topology of ``DENSE_MESH_DEVICES`` devices at the card's
+    capacity, from the gate's cached trace: each topology's per-device
+    estimate, persistent bytes, injected collective bytes and fit.
+    Fails if the sweep traced."""
+    from repro_torch.configs.base import smoke_shape
+    from repro_torch.configs.registry import input_specs
+    from repro_torch.models import model as M
+    from repro_torch.train import make_estimator_hooks
+    b0 = gate["candidates"][0]["batch"]
+    fwd, upd, init = make_estimator_hooks(cfg, policy)
+    res = service.mesh_sweep(
+        fwd, M.abstract_params(cfg), input_specs(
+            cfg, smoke_shape(TRAIN_SEQ, b0)), mesh_grid(DENSE_MESH_DEVICES),
+        update_fn=upd, opt_init_fn=init, cfg=cfg, capacity=capacity)
+    emit("dense_mesh_sweep", config=cfg.name, n_layers=cfg.n_layers,
+         seq_len=TRAIN_SEQ, batch=b0, capacity=capacity,
+         single_device=gate["decisions"][b0].peak_bytes,
+         stats=res.stats, rows=[{
+             "topology": t.label, "devices": t.n_devices, "model": t.model,
+             "fsdp": t.fsdp, "peak": r.peak_bytes,
+             "tensor_peak": r.peak_tensor_bytes,
+             "persistent": r.persistent_bytes, "oom": r.oom,
+             "fits": not r.oom and r.peak_bytes <= capacity,
+             "collectives": collective_bytes(r)} for t, r in res])
+    if res.stats["trace_cache"]["misses"]:
+        raise AssertionError(f"dense_mesh_sweep traced: {res.stats}")
+    return res
+
+
+def phase_dense_mesh(cfg, policy, est, service, capacity: int, gate: dict,
+                     mesh, ahead: dict, truths: dict) -> None:
+    """Rank 0 of the sharded dense job on the card: ``pick_mesh_runs`` of
+    the mesh sweep (``topology_grid`` of ``DENSE_MESH_FALLBACK_DEVICES``
+    swept too when none fits), each topology's rank-local job
+    (``rank_local_job``) estimated on one device (traced ahead) and run
+    for ``TRAIN_STEPS`` steps. Fails on an out-of-memory run or a
+    non-finite loss, a sweep estimate under the card's reserved peak by
+    more than ``RESERVED_TOL``, or a rank-local estimate outside
+    ``RESERVED_TOL`` reserved or ``ALLOCATED_TOL`` allocated. An
+    over-estimate by the sweep is reported: the run leaves out NCCL's
+    buffers and the staging the sweep injects. So is each data-parallel
+    topology whose rank's job the card ran at 1 device in this process
+    (``truths``: the train run, DirectProbe's probes): its per-device
+    estimate beside that peak, where the rule engine's optimizer state,
+    sharded over data, and a DDP rank's, whole, differ."""
+    import math
+
+    import torch
+    from repro_torch.configs.base import smoke_shape
+    from repro_torch.configs.registry import input_specs
+    from repro_torch.launch import train as trn
+    from repro_torch.models import model as M
+    from repro_torch.train import make_estimator_hooks
+    b0 = gate["candidates"][0]["batch"]
+    rows = list(mesh)
+    picks = pick_mesh_runs(cfg, rows, capacity, b0)
+    fallback = None
+    if not picks:
+        fwd, upd, init = make_estimator_hooks(cfg, policy)
+        fallback = service.mesh_sweep(
+            fwd, M.abstract_params(cfg), input_specs(
+                cfg, smoke_shape(TRAIN_SEQ, b0)),
+            mesh_grid(DENSE_MESH_FALLBACK_DEVICES), update_fn=upd,
+            opt_init_fn=init, cfg=cfg, capacity=capacity)
+        rows += list(fallback)
+        picks = pick_mesh_runs(cfg, rows, capacity, b0)
+    if not picks:
+        raise AssertionError(f"dense_mesh: no {DENSE_MESH_RUNS} topologies "
+                             f"that a single-device job can express fit "
+                             f"{capacity} B")
+    runs, violations = [], []
+    for topo, row in picks:
+        local, lb = rank_local_job(cfg, topo, b0)
+        shape = smoke_shape(TRAIN_SEQ, lb)
+        f, u, i = make_estimator_hooks(local, policy)
+        h0 = est.trace_cache.misses
+        t0 = time.perf_counter()
+        rep = est.estimate_training(f, M.abstract_params(local),
+                                    input_specs(local, shape), update_fn=u,
+                                    opt_init_fn=i, capacity=capacity)
+        run = {"topology": topo.label, "model": topo.model,
+               "replicas": topo.pod * topo.data, "local_batch": lb,
+               "local_dims": {k: getattr(local, k) for k in (
+                   "n_heads", "n_kv_heads", "d_ff", "vocab")},
+               "sweep_estimate": row.peak_bytes,
+               "sweep_tensor_estimate": row.peak_tensor_bytes,
+               "sweep_collectives": collective_bytes(row),
+               "local_estimate": rep.peak_bytes,
+               "local_tensor_estimate": rep.peak_tensor_bytes,
+               "local_estimate_s": time.perf_counter() - t0,
+               "traced_at_turn": est.trace_cache.misses - h0}
+        torch.cuda.empty_cache()
+        params = M.init_params(local, 0, device="cuda")
+        torch.cuda.synchronize()
+        try:
+            got = trn.train_loop(local, shape, policy, steps=TRAIN_STEPS,
+                                 device="cuda", params=params)
+        except torch.OutOfMemoryError as e:
+            run["card"] = f"out of memory: {str(e).splitlines()[0]}"
+            violations.append(f"{topo.label}: out of memory")
+            runs.append(run)
+            del params
+            torch.cuda.empty_cache()
+            continue
+        losses = got.out.losses
+        run.update(reserved=got.reserved, allocated=got.allocated,
+                   losses=losses, step_ms=[x * 1e3 for x in got.out.step_s],
+                   sweep_rel_reserved=(row.peak_bytes - got.reserved)
+                   / got.reserved,
+                   local_rel_reserved=(rep.peak_bytes - got.reserved)
+                   / got.reserved,
+                   local_rel_allocated=(rep.peak_tensor_bytes
+                                        - got.allocated) / got.allocated)
+        if not all(math.isfinite(x) for x in losses):
+            violations.append(f"{topo.label}: loss {losses}")
+        if run["sweep_rel_reserved"] < -RESERVED_TOL:
+            violations.append(f"{topo.label}: the sweep's estimate "
+                              f"{run['sweep_rel_reserved']:+.4%} under the "
+                              f"card's reserved peak")
+        if abs(run["local_rel_reserved"]) > RESERVED_TOL:
+            violations.append(f"{topo.label}: rank-local estimate "
+                              f"{run['local_rel_reserved']:+.4%} reserved")
+        if abs(run["local_rel_allocated"]) > ALLOCATED_TOL:
+            violations.append(f"{topo.label}: rank-local estimate "
+                              f"{run['local_rel_allocated']:+.4%} allocated")
+        runs.append(run)
+        del params, got
+        torch.cuda.empty_cache()
+    if not any(r["model"] > 1 for r in runs):
+        violations.append("no run with model > 1")
+    data_parallel = []
+    for topo, row in rows:
+        lb = b0 // (topo.pod * topo.data)
+        if topo.model == 1 and not topo.fsdp and topo.n_devices > 1 \
+                and isinstance(truths.get(lb), int):
+            data_parallel.append({
+                "topology": topo.label, "local_batch": lb,
+                "sweep_estimate": row.peak_bytes, "truth": truths[lb],
+                "rel": (row.peak_bytes - truths[lb]) / truths[lb],
+                "collectives": collective_bytes(row)})
+    emit("dense_mesh", config=cfg.name, n_layers=cfg.n_layers,
+         seq_len=TRAIN_SEQ, global_batch=b0, capacity=capacity,
+         steps=TRAIN_STEPS, ahead=ahead, data_parallel=data_parallel,
+         picks=[t.label for t, _ in picks],
+         fallback=None if fallback is None else fallback.stats, runs=runs,
+         violations=violations, memory=device_memory())
+    if violations:
+        raise AssertionError(f"dense_mesh: {violations}")
+
 
 def phase_plan_offers(cfg, policy, service, capacity: int, gate: dict,
-                      truths: dict, ahead_s: dict) -> None:
+                      truths: dict, ahead_s: dict, mesh) -> None:
     """The remediation planner on the dense job's rejection: the gate's
     decision at its first candidate is the baseline of
     ``RemediationPlanner.plan`` at the card's capacity over the default
-    batch, microbatch and remat axes and host offload (optimizer state,
+    batch, microbatch and remat axes, the topologies of
+    ``DENSE_MESH_DEVICES`` devices and host offload (optimizer state,
     and half the activations on top). Every candidate is listed with its
-    decision. Each offer the port's step can run (not offload, which
-    neither step executes) is held to the card: at a batch the card
+    decision; each topology offer is held to ``mesh``'s row (the
+    ``dense_mesh_sweep`` phase's) to the byte. Each offer the port's
+    step can run (not offload, which neither step executes; not a
+    topology, a device's share) is held to the card: at a batch the card
     measured at 1 microbatch (``truths``: the train run, DirectProbe's
     probes) against that truth, and the cheapest runnable offer without
     one run for ``TRAIN_STEPS`` steps (at most one run). Fails if an
     offer ran out of memory on the card, reserved more than the
     capacity, missed its truth by more than ``RESERVED_TOL``, if an
-    offer's ``admission_request`` decided again differs from it, or if
-    the search traced more than its microbatch and remat candidates."""
+    offer's ``admission_request`` decided again differs from it, if a
+    topology offer differs from its row, or if the search traced more
+    than its microbatch and remat candidates."""
     import math
 
     import torch
@@ -1874,7 +2191,7 @@ def phase_plan_offers(cfg, policy, service, capacity: int, gate: dict,
     b0 = gate["candidates"][0]["batch"]
     baseline = gate["decisions"][b0]
     shape = smoke_shape(TRAIN_SEQ, b0)
-    space = PlanSpace(offload_opt_state=True,
+    space = PlanSpace(devices=DENSE_MESH_DEVICES, offload_opt_state=True,
                       offload_activations=PLAN_OFFLOAD_ACTIVATIONS,
                       max_offers=64)
     recording = _RecordingService(service)
@@ -1890,6 +2207,12 @@ def phase_plan_offers(cfg, policy, service, capacity: int, gate: dict,
             "oom": d.report.oom if d.report is not None else None,
             "space_peaks": d.breakdown.get("space_peaks"),
             "offload": d.breakdown.get("offload")})
+    for res_mesh in recording.sweeps:
+        candidates.extend({
+            "job_id": f"topology/{t.label}", "peak": r.peak_bytes,
+            "admit": not r.oom and r.peak_bytes <= capacity,
+            "source": "mesh-sweep", "oom": r.oom} for t, r in res_mesh)
+    rows_mesh = {t.label: r for t, r in mesh}
     violations = []
     rows, ran = [], False
     for rank, o in enumerate(res.offers, 1):
@@ -1901,10 +2224,18 @@ def phase_plan_offers(cfg, policy, service, capacity: int, gate: dict,
         if not row["reproduced"]:
             violations.append(f"offer {rank}: decided again "
                               f"{again.admit} {again.peak_bytes}")
+        if o.topology is not None:
+            swept = rows_mesh[o.topology.label].peak_bytes
+            row["sweep_row"] = swept
+            if swept != o.peak_bytes:
+                violations.append(f"offer {rank}: {o.peak_bytes} B, its "
+                                  f"sweep row {swept} B")
         runnable = o.knob in ("batch", "microbatch", "remat")
         truth = truths.get(o.global_batch) if o.microbatches == 1 \
             and o.remat == cfg.remat else None
-        if not runnable:
+        if o.knob == "topology":
+            row["card"] = "a device's share: dense_mesh runs rank 0"
+        elif not runnable:
             row["card"] = "an estimate only: neither step executes host " \
                 "offload"
         elif isinstance(truth, int):

@@ -11,9 +11,9 @@
    optimizer state materializes at the first update and persists, which
    is why the paper analyzes >= 2 iterations (we default to 3 like the
    paper); iterations 2..N-2 are a shifted template;
-4. orchestrate lifecycles (persistence, gradient release, batches),
-   and, in the GPU preset, add cuBLAS's two workspaces to the first
-   iteration;
+4. orchestrate lifecycles (persistence, gradient release, batches,
+   collective injection, sharding), and, in the GPU preset, add
+   cuBLAS's two workspaces to the first iteration;
 5. replay through the CUDA caching allocator simulation -> peak
    reserved bytes, the estimate, and the OOM verdict.
 
@@ -37,7 +37,17 @@ concretely, the orchestrator's passes one by one, the object replay
 engine. The fast path must match it on every estimate field
 (``tests/test_torch_offload.py``); it rejects host offload, as the
 reference does. ``calibrate`` fits the transient scale from measured
-peaks. Not ported (slice 11): collectives and sharding.
+peaks.
+
+Per-device estimates of a sharded job (the paper's §6.2 extension):
+``shard_factor_fn`` (``distributed.sharding.shard_factor_fn``: a
+block's division factor from the specs the rule engine places) and
+``collective_specs`` (``mesh_collective_specs``: per-axis staging
+buffers) enter stage 4 as in the JAX package: the collectives are
+injected at the phase bounds of the concretely composed iterations,
+sized from the per-device blocks, then every block gets its factor and
+the replay runs on per-device sizes. Neither enters the trace key: one
+trace serves every mesh (``SweepService.estimate_mesh_sweep``).
 """
 from __future__ import annotations
 
@@ -56,8 +66,9 @@ from .cache import BlockInfo, TraceCache, TracedPhase, trace_key
 from .events import (BlockKind, BlockLifecycle, MemorySpace, PeriodicBlocks,
                      Phase, peak_live_bytes, periodic_breakdown_peaks_fast,
                      reduced_for_breakdown)
-from .orchestrator import (ContinuousBatchingScheduler, MemoryOrchestrator,
-                           OrchestratorPolicy, ServingKnobs)
+from .orchestrator import (CollectiveSpec, ContinuousBatchingScheduler,
+                           MemoryOrchestrator, OrchestratorPolicy,
+                           ServingKnobs)
 from .simulator import MemorySimulator, SimResult, split_blocks_by_space
 from .tracer import trace_fn
 
@@ -380,17 +391,21 @@ class XMemEstimator:
                           params, batch,
                           update_fn: Callable | None = None,  # (params, grads, opt_state) -> (params, opt_state)
                           opt_init_fn: Callable | None = None,  # params -> opt_state
+                          shard_factor_fn=None,
+                          collective_specs: Sequence[CollectiveSpec] = (),
                           capacity: int | None = None) -> EstimateReport:
         """Peak memory of ``iterations`` training steps. ``params`` and
         ``batch`` are pytrees of tensors of any device (``meta`` ones
-        allocate nothing): only shapes and dtypes are read."""
+        allocate nothing): only shapes and dtypes are read. With
+        ``shard_factor_fn``/``collective_specs`` the estimate is one
+        device's of a sharded job."""
         t0 = time.perf_counter()
         if not self.fastpath:
             policy_before = self.orchestrator.policy
             try:
                 return self._estimate_training_reference(
                     fwd_bwd_fn, params, batch, update_fn, opt_init_fn,
-                    capacity, t0)
+                    shard_factor_fn, collective_specs, capacity, t0)
             finally:
                 self.orchestrator.policy = policy_before
         cache = self.trace_cache
@@ -399,8 +414,10 @@ class XMemEstimator:
                                            update_fn, opt_init_fn)
         cache_stats = {"hits": cache.hits - h0, "misses": cache.misses - m0,
                        "global": cache.stats()}
-        return self.estimate_from_phases(fwd, upd, init, capacity=capacity,
-                                         t0=t0, cache_stats=cache_stats)
+        return self.estimate_from_phases(
+            fwd, upd, init, shard_factor_fn=shard_factor_fn,
+            collective_specs=collective_specs, capacity=capacity, t0=t0,
+            cache_stats=cache_stats)
 
     def trace_phases(self, fwd_bwd_fn, params, batch, update_fn=None,
                      opt_init_fn=None, fwd: TracedPhase | None = None
@@ -443,22 +460,28 @@ class XMemEstimator:
     def estimate_from_phases(self, fwd: TracedPhase,
                              upd: TracedPhase | None = None,
                              init: TracedPhase | None = None, *,
+                             shard_factor_fn=None,
+                             collective_specs: Sequence[CollectiveSpec] = (),
                              capacity: int | None = None,
                              t0: float | None = None,
                              cache_stats: dict | None = None
                              ) -> EstimateReport:
         """Stages 2-5 (compose, classify, orchestrate, simulate) from
-        already-traced phases."""
+        already-traced phases: ``estimate_training`` lands here after
+        stage 1, and the sweep service enters directly with cached or
+        synthesized phases (one trace for every mesh of a mesh sweep)."""
         if t0 is None:
             t0 = time.perf_counter()
         policy_before = self.orchestrator.policy
         try:
-            return self._estimate_from_phases(fwd, upd, init, capacity, t0,
-                                              cache_stats or {})
+            return self._estimate_from_phases(
+                fwd, upd, init, shard_factor_fn, collective_specs,
+                capacity, t0, cache_stats or {})
         finally:
             self.orchestrator.policy = policy_before
 
-    def _estimate_from_phases(self, fwd, upd, init, capacity, t0,
+    def _estimate_from_phases(self, fwd, upd, init, shard_factor_fn,
+                              collective_specs, capacity, t0,
                               cache_stats) -> EstimateReport:
         if self.checkpoint is not None:
             self.checkpoint("replay")
@@ -473,6 +496,17 @@ class XMemEstimator:
             concrete += self._cublas_workspaces(pb.prefix)
 
         # --- stage 4: orchestrate ---
+        # the collectives' phase bounds: concretely composed iterations
+        # only (iteration 2's keys on the fast path are template
+        # release markers, not an iteration of the timeline)
+        phase_bounds = {}
+        for it, end in meta["iteration_ends"].items():
+            if it not in meta["bwd_start"]:
+                continue
+            phase_bounds[(it, Phase.FORWARD_BACKWARD.value)] = (
+                meta["bwd_start"][it], meta["update_start"][it])
+            phase_bounds[(it, Phase.OPTIMIZER.value)] = (
+                meta["update_start"][it], end)
         # The JAX package resolves "auto" by a taint pass over the update
         # jaxpr (per-leaf updates fuse into the backward under XLA). An
         # eager step has no such fusion: every gradient lives until the
@@ -485,7 +519,10 @@ class XMemEstimator:
             iteration_ends=meta["iteration_ends"],
             update_start=meta["update_start"],
             next_bwd_start=meta["update_start"],
-            num_iterations=self.iterations)
+            collective_specs=collective_specs,
+            phase_bounds=phase_bounds,
+            num_iterations=self.iterations,
+            shard_factor_fn=shard_factor_fn)
         # host offload, a separate pass: only the concretely composed
         # iterations get staging blocks (update_start's synthetic
         # template key is a release marker, not an iteration)
@@ -617,8 +654,9 @@ class XMemEstimator:
         return blocks, meta
 
     def _estimate_training_reference(self, fwd_bwd_fn, params, batch,
-                                     update_fn, opt_init_fn, capacity,
-                                     t0) -> EstimateReport:
+                                     update_fn, opt_init_fn,
+                                     shard_factor_fn, collective_specs,
+                                     capacity, t0) -> EstimateReport:
         """The reference pipeline: uncached traces, a concrete
         N-iteration composition, the frozen classifier, the
         orchestrator's passes one by one, the object replay engine over
@@ -673,6 +711,12 @@ class XMemEstimator:
             blocks += self._cublas_workspaces(
                 [b for b in blocks if b.iteration == 0])
 
+        phase_bounds = {}
+        for it, end in meta["iteration_ends"].items():
+            phase_bounds[(it, Phase.FORWARD_BACKWARD.value)] = (
+                meta["bwd_start"][it], meta["update_start"][it])
+            phase_bounds[(it, Phase.OPTIMIZER.value)] = (
+                meta["update_start"][it], end)
         o = self.orchestrator
         if o.policy.grad_release == "auto":
             o.policy = dataclasses.replace(o.policy,
@@ -689,6 +733,12 @@ class XMemEstimator:
         if o.policy.release_outputs_next_iter:
             blocks = o.release_step_outputs(blocks, meta["iteration_ends"])
         blocks = o.apply_transient_scale(blocks)
+        if collective_specs and phase_bounds:
+            blocks = o.inject_collectives(blocks, collective_specs,
+                                          phase_bounds, self.iterations,
+                                          shard_factor_fn)
+        if shard_factor_fn is not None:
+            blocks = o.apply_sharding(blocks, shard_factor_fn)
 
         if self.checkpoint is not None:
             self.checkpoint("replay")
@@ -716,6 +766,7 @@ class XMemEstimator:
     # -- capacity probing ---------------------------------------------------
     def min_feasible_capacity(self, fwd_bwd_fn, params, batch,
                               update_fn=None, opt_init_fn=None,
+                              shard_factor_fn=None, collective_specs=(),
                               report: EstimateReport | None = None) -> int:
         """Smallest device capacity the job fits in, from one instrumented
         replay (plus bounded verification) — see
@@ -724,7 +775,8 @@ class XMemEstimator:
         if report is None or report.composition is None:
             report = self.estimate_training(
                 fwd_bwd_fn, params, batch, update_fn=update_fn,
-                opt_init_fn=opt_init_fn)
+                opt_init_fn=opt_init_fn, shard_factor_fn=shard_factor_fn,
+                collective_specs=collective_specs)
         probe = (report.sim if report.sim_unbounded and not report.sim.oom
                  else None)
         # under offload the question is about the device's memory only;
@@ -740,10 +792,16 @@ class XMemEstimator:
             comp, probe=probe)
 
     def estimate_serving(self, step_fn: Callable, params, cache, batch,
+                         shard_factor_fn=None,
+                         collective_specs: Sequence[CollectiveSpec] = (),
                          capacity: int | None = None) -> EstimateReport:
         """Single-phase estimate of a serving step ``step_fn(params,
         cache, batch)`` with a persistent cache; in the GPU preset the
-        replay adds cuBLAS's workspace at the step's first matmul."""
+        replay adds cuBLAS's workspace at the step's first matmul. With
+        ``shard_factor_fn`` the blocks are one device's share (the
+        workspace is per device already); ``collective_specs`` is
+        accepted and unused, as in the JAX package (a decode step has no
+        phase bounds to stage collectives at)."""
         t0 = time.perf_counter()
         entry = self._trace_phase(
             step_fn,
@@ -755,6 +813,8 @@ class XMemEstimator:
         blocks = self.orchestrator.mark_persistent(
             blocks, kinds=(BlockKind.PARAM, BlockKind.CACHE))
         blocks = self.orchestrator.fold_fused(blocks)
+        if shard_factor_fn is not None:
+            blocks = self.orchestrator.apply_sharding(blocks, shard_factor_fn)
         # the serving thread's cuBLAS workspace, from its first matmul on;
         # held for good, not the step's: no part of the persistent bytes
         workspace = (self._cublas_workspaces(blocks)
@@ -782,6 +842,7 @@ class XMemEstimator:
                                 kv_bytes_per_token: int,
                                 resident_bytes_per_request: int = 0,
                                 base_dtype_bytes: int = 2,
+                                shard_factor_fn=None,
                                 capacity: int | None = None
                                 ) -> "ServingEstimate":
         """Estimate a serving runtime over a request-driven timeline.
@@ -814,6 +875,10 @@ class XMemEstimator:
           and replayed through the allocator simulation exactly (join,
           extend, leave and evict at the tick each happens).
 
+        With ``shard_factor_fn`` the step's blocks are one device's share
+        before its replay; the paged stream is not sharded, as in the JAX
+        package.
+
         ``worst_case_peak_bytes`` is what an admission gate must trust;
         ``steady_state_peak_bytes`` (median live paged bytes) is what a
         capacity planner provisions for sustained load.
@@ -830,6 +895,9 @@ class XMemEstimator:
         blocks = self.orchestrator.mark_persistent(
             blocks, kinds=(BlockKind.PARAM, BlockKind.CACHE))
         blocks = self.orchestrator.fold_fused(blocks)
+        if shard_factor_fn is not None:
+            blocks = self.orchestrator.apply_sharding(blocks,
+                                                      shard_factor_fn)
         workspace = (self._cublas_workspaces(blocks)
                      if self.cublas_workspace else [])
         step_sim = MemorySimulator(self.allocator_policy, self.capacity,

@@ -47,9 +47,24 @@ Differences from the JAX package:
   size-1 dims make some copies no-ops) is repaired by its nearest
   neighbour, which keeps the widest range; the JAX package traces its
   repair probe between the two consistent ones;
-* the mesh-topology sweep (``MeshTopology``, ``topology_grid``,
-  ``estimate_mesh_sweep``) and a point's shard factors and collectives
-  wait for the port's sharding module.
+* ``MeshSweepResult.admitted``/``best`` admit a topology by the
+  admission service's rule (its replay did not run out of memory, its
+  peak fits): a sweep replayed at a capacity stops at it. The JAX
+  package compares the peak alone, the same verdict on an unbounded
+  replay.
+
+``estimate_mesh_sweep`` is the mesh-topology sweep: per-device estimates
+for a grid of (pod, data, model, fsdp) topologies (``topology_grid``)
+from ONE set of phase traces, each topology's shard factors and
+collective staging from ``distributed.sharding``. A sweep point may
+carry its own shard factors and collectives; such points are estimated
+in this process (the factor functions need not pickle), and a
+synthesized phase carries each block's shape at its batch, so spec
+factors resolve on it as on a traced one. On the CPU:
+``python -m repro_torch.launch.hillclimb --xmem-mesh qwen3-32b --smoke
+--device cpu --hbm-gib 0.089 --devices 2,4`` sweeps a smoke job;
+``chip_smoke.py``'s ``dense_mesh`` holds a full-width sweep's
+tensor-parallel rows against rank 0 run on the card.
 
 Use ``SweepService`` when sweeping repeatedly (the pool and trace cache
 stay warm across calls); ``estimate_many`` is the one-shot convenience.
@@ -81,6 +96,8 @@ class SweepPoint:
     batch: Any
     update_fn: Callable | None = None
     opt_init_fn: Callable | None = None
+    shard_factor_fn: Callable | None = None
+    collective_specs: Sequence = ()
     capacity: int | None = None
 
 
@@ -95,6 +112,93 @@ class SweepResult:
 
     def __len__(self):
         return len(self.reports)
+
+
+# -- mesh-topology sweep -----------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MeshTopology:
+    """One (pod, data, model, fsdp) cell of a topology grid."""
+
+    pod: int = 1
+    data: int = 1
+    model: int = 1
+    fsdp: bool = False
+
+    @property
+    def n_devices(self) -> int:
+        return self.pod * self.data * self.model
+
+    @property
+    def axis_sizes(self) -> dict:
+        return {"pod": self.pod, "data": self.data, "model": self.model}
+
+    @property
+    def label(self) -> str:
+        tag = f"{self.pod}x{self.data}x{self.model}"
+        return tag + ("+fsdp" if self.fsdp else "")
+
+    def sharding_policy(self):
+        from ..distributed.sharding import ShardingPolicy
+        fsdp_axes = (("data", "pod") if self.pod > 1 else ("data",))
+        return ShardingPolicy(fsdp=self.fsdp, fsdp_axes=fsdp_axes,
+                              batch_axes=("pod", "data"))
+
+
+def topology_grid(n_devices: int, *, pods: Sequence[int] = (1,),
+                  fsdp: Sequence[bool] = (False, True)
+                  ) -> list[MeshTopology]:
+    """All (pod, data, model, fsdp) cells whose device product equals
+    ``n_devices``. fsdp=True cells are skipped when every fsdp axis has
+    size 1 (they would duplicate the fsdp=False estimate while claiming
+    ZeRO-3 was modeled)."""
+    out = []
+    for pod in pods:
+        if pod <= 0 or n_devices % pod:
+            continue
+        per_pod = n_devices // pod
+        for model in range(1, per_pod + 1):
+            if per_pod % model:
+                continue
+            data = per_pod // model
+            for f in fsdp:
+                if f and data * pod == 1:
+                    continue
+                out.append(MeshTopology(pod=pod, data=data,
+                                        model=model, fsdp=f))
+    return out
+
+
+@dataclasses.dataclass
+class MeshSweepResult:
+    """Per-topology estimates from one set of phase traces."""
+
+    topologies: list[MeshTopology]
+    reports: list[EstimateReport]
+    stats: dict
+
+    def __iter__(self):
+        return iter(zip(self.topologies, self.reports))
+
+    def __len__(self):
+        return len(self.reports)
+
+    def admitted(self, capacity: int) -> list[MeshTopology]:
+        """Topologies whose per-device estimate fits ``capacity``: its
+        replay did not run out of memory (a sweep replayed at a capacity
+        stops there) and its peak fits, the admission service's rule."""
+        return [t for t, r in zip(self.topologies, self.reports)
+                if not r.oom and r.fits(capacity)]
+
+    def best(self, capacity: int
+             ) -> tuple[MeshTopology, EstimateReport] | None:
+        """Cheapest admitted topology: fewest devices, then lowest
+        per-device peak."""
+        fits = [(t, r) for t, r in zip(self.topologies, self.reports)
+                if not r.oom and r.fits(capacity)]
+        if not fits:
+            return None
+        return min(fits, key=lambda tr: (tr[0].n_devices,
+                                         tr[1].peak_bytes))
 
 
 @dataclasses.dataclass
@@ -571,7 +675,8 @@ class SweepService:
     def _estimate_full(self, p: SweepPoint) -> EstimateReport:
         return self.estimator.estimate_training(
             p.fwd_bwd_fn, p.params, p.batch, update_fn=p.update_fn,
-            opt_init_fn=p.opt_init_fn, capacity=p.capacity)
+            opt_init_fn=p.opt_init_fn, shard_factor_fn=p.shard_factor_fn,
+            collective_specs=p.collective_specs, capacity=p.capacity)
 
     def _estimator_config(self) -> dict:
         est = self.estimator
@@ -633,7 +738,11 @@ class SweepService:
         pool = self._get_pool()
         gpoints = [points[i] for i in idxs]
         distinct = sorted(set(scalars)) if scalars is not None else []
-        picklable = pool is not None and self._picklable_jobs(gpoints)
+        # points with shard factors or collectives stay in this process
+        plain = all(p.shard_factor_fn is None and not p.collective_specs
+                    for p in gpoints)
+        picklable = (pool is not None and plain
+                     and self._picklable_jobs(gpoints))
 
         def traced(i, rep):
             reports[i] = rep
@@ -772,8 +881,9 @@ class SweepService:
             fwd, upd, init = est.trace_phases(
                 p.fwd_bwd_fn, p.params, p.batch, p.update_fn,
                 p.opt_init_fn, fwd=fwd)
-            reports[i] = est.estimate_from_phases(fwd, upd, init,
-                                                  capacity=p.capacity)
+            reports[i] = est.estimate_from_phases(
+                fwd, upd, init, shard_factor_fn=p.shard_factor_fn,
+                collective_specs=p.collective_specs, capacity=p.capacity)
             sources[i] = "interpolated"
             stats["interpolated"] += 1
 
@@ -849,6 +959,55 @@ class SweepService:
                 stats["pooled"] += 1
 
     # -- public API ----------------------------------------------------------
+    def estimate_mesh_sweep(self, fwd_bwd_fn, params, batch,
+                            topologies: Sequence[MeshTopology], *,
+                            update_fn=None, opt_init_fn=None, cfg=None,
+                            shard_factors: str = "spec",
+                            collectives: bool = True,
+                            capacity: int | None = None) -> MeshSweepResult:
+        """Per-device estimates for a grid of mesh topologies from ONE
+        set of phase traces.
+
+        Stage 1 (tracing) does not depend on the topology: the phases
+        are traced once (or served from the trace cache), and stages 2-5
+        (compose, shard factors, per-axis collective injection, replay)
+        run per topology. With ``shard_factors="spec"`` each topology's
+        factors come from the specs the sharding engine would place at
+        that mesh, divisibility fallbacks included; ``collectives=True``
+        injects the per-axis staging buffers (``mesh_collective_specs``).
+        ``capacity`` is the replay's, as for ``estimate_training``."""
+        from ..distributed.sharding import (mesh_collective_specs,
+                                            shard_factor_fn)
+        t0 = time.perf_counter()
+        est = self.estimator
+        cache = est.trace_cache
+        h0, m0 = cache.hits, cache.misses
+        fwd, upd, init = est.trace_phases(fwd_bwd_fn, params, batch,
+                                          update_fn, opt_init_fn)
+        t_trace = time.perf_counter() - t0
+        opt_state = init.out_shape if init is not None else None
+        reports = []
+        for topo in topologies:
+            mesh = topo.axis_sizes
+            pol = topo.sharding_policy()
+            factor = shard_factor_fn(cfg, mesh, pol, mode=shard_factors,
+                                     params=params, opt_state=opt_state,
+                                     batch=batch)
+            specs = (mesh_collective_specs(mesh, pol)
+                     if collectives else ())
+            reports.append(est.estimate_from_phases(
+                fwd, upd, init, shard_factor_fn=factor,
+                collective_specs=specs, capacity=capacity))
+        stats = {
+            "topologies": len(reports),
+            "trace_s": t_trace,
+            "trace_cache": {"hits": cache.hits - h0,
+                            "misses": cache.misses - m0},
+            "wall_s": time.perf_counter() - t0,
+            "shard_factors": shard_factors,
+        }
+        return MeshSweepResult(list(topologies), reports, stats)
+
     def estimate_serving_sweep(self, step_fn, params, cache, batch, *,
                                stream, knob_grid: Sequence,
                                kv_bytes_per_token: int,

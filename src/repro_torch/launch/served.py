@@ -31,10 +31,13 @@ Request kinds:
   "batch":8,"hbm_gib":0.25}`` (gates on max(prefill, decode));
 * ``plan`` — the same job fields as ``train`` plus the remediation
   search space: ``{"kind":"plan","arch":...,"batch":32,"hbm_gib":0.01,
-  "batch_grid":[16,8],"microbatch_grid":[2,4],"remat_grid":["full"],
-  "max_offers":5,"offload_opt_state":true,"offload_activations":[0.5]}``
-  answers a job that does not fit with ranked feasible counter-offers
-  (grid keys are optional: defaults derive from the job);
+  "devices":[4,8],"batch_grid":[16,8],"microbatch_grid":[2,4],
+  "remat_grid":["full"],"pad_vocab_multiple":16,"max_offers":5,
+  "offload_opt_state":true,"offload_activations":[0.5]}`` answers a job
+  that does not fit with ranked feasible counter-offers (grid keys are
+  optional: defaults derive from the job; ``devices`` adds the mesh
+  topologies of those device counts, each offer's peak per device, and
+  ``pad_vocab_multiple`` their padded-vocab variants);
 * ``serve_plan`` — ``{"kind":"serve_plan","arch":...,"mix":"48:16:8",
   "max_concurrent":8,"page_size":16,"kv_dtype_bytes":2,
   "page_sizes":[8,16],"max_concurrents":[4,8],"kv_dtypes":[1,2],
@@ -66,11 +69,6 @@ a request with ``"device": "cpu"``, must give ``hbm_gib``. The fleet
 ``--fleet-hbm-gib`` GiB each (a request's ``fleet_hbm_gib``), else of
 the daemon's card's capacity; on the CPU the flag or the request must
 give it.
-
-Not ported yet, answered with a structured ``{"ok": false, "kind":
-"error"}`` naming its slice: a ``plan`` request's ``devices`` or
-``pad_vocab_multiple`` (the planner's mesh axes, slice 11c; the
-planner's error names slice 11).
 
 Hardening: request lines are length-bounded (oversized or malformed
 lines get a structured ``{"kind": "error"}`` response and the
@@ -214,9 +212,8 @@ def fleet_scheduler(service, d: dict, server=None,
 
 
 def build_plan_space(d: dict) -> PlanSpace:
-    """PlanSpace from the optional wire-level grid keys. ``devices`` and
-    ``pad_vocab_multiple`` (the mesh axes) pass through, and the planner
-    raises on them (slice 11 of the port)."""
+    """PlanSpace from the optional wire-level grid keys, the mesh axes
+    (``devices``, ``pad_vocab_multiple``) included."""
     return PlanSpace(
         batches=(tuple(int(b) for b in d["batch_grid"])
                  if "batch_grid" in d else None),

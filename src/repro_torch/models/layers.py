@@ -184,13 +184,18 @@ def attention_forward(q, k, v, acfg: AttentionConfig, *, causal=True,
                       window=None, is_global=None):
     """Dispatch on sequence length / configured implementation.
 
-    The JAX package's sharding constraints are single-device no-ops and
-    are dropped. Unlike the JAX ``"pallas"`` branch, the ``"flash"``
-    branch honours ``is_global``: a global layer gets no window."""
+    q, k and v carry the reference's head-sharding anchors
+    (``constrain``: the identity outside a bound mesh scope). Unlike
+    the JAX ``"pallas"`` branch, the ``"flash"`` branch honours
+    ``is_global``: a global layer gets no window."""
+    from ..distributed.act_sharding import constrain
     if acfg.repeat_kv_for_tp and k.shape[2] != q.shape[2]:
         G = q.shape[2] // k.shape[2]
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
+    q = constrain(q, ("batch", None, "heads", None))
+    k = constrain(k, ("batch", None, "heads", None))
+    v = constrain(v, ("batch", None, "heads", None))
     S = q.shape[1]
     impl = acfg.impl
     if impl == "flash":
@@ -304,8 +309,11 @@ def cross_entropy_loss(logits, labels, ignore_index: int = -1):
     term is ``torch.gather`` along the vocab of the f32 log-softmax:
     the same numbers (lse - logit[label]) without a [B, S, V] f32
     one-hot tensor. ``log_softmax`` keeps only its output for the
-    backward, so the f32 copy of the logits dies in the forward."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    backward, so the f32 copy of the logits dies in the forward. The
+    f32 logits carry the reference's vocab-sharding anchor."""
+    from ..distributed.act_sharding import constrain
+    ldims = ("batch",) + (None,) * (logits.ndim - 2) + ("vocab",)
+    logp = torch.log_softmax(constrain(logits.float(), ldims), dim=-1)
     picked = torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])
     mask = (labels != ignore_index).float()
     return -(picked[..., 0] * mask).sum() / mask.sum().clamp(min=1.0)

@@ -350,13 +350,15 @@ def _embed_codes(embed, codes):
 
 
 def logits_fn(params, h, cfg: ModelConfig):
-    """h [B, S, D] -> logits [B, S, V], or [B, S, K, V] for audio."""
+    """h [B, S, D] -> logits [B, S, V], or [B, S, K, V] for audio; the
+    [B, S, V] product carries the reference's vocab-sharding anchor."""
+    from ..distributed.act_sharding import constrain
     K = cfg.num_codebooks
     if cfg.tie_embeddings:
         if K:
             return torch.einsum("bsd,kvd->bskv", h, params["embed"])
-        return h @ params["embed"].T
-    out = h @ params["head"]
+        return constrain(h @ params["embed"].T, ("batch", None, "vocab"))
+    out = constrain(h @ params["head"], ("batch", None, "vocab"))
     if K:
         return out.reshape(*h.shape[:2], K, cfg.padded_vocab)
     return out

@@ -2,22 +2,27 @@
 (port of ``repro.plan.planner``).
 
 Given a job the admission service just bounced, search the plan space
-(global batch, gradient-accumulation microbatches, remat policy, host
-offload, and for a serving mix the page size x concurrency x KV dtype x
-prefix-cache grid) and return a ranked list of :class:`CounterOffer`\\ s
-that *do* fit the capacity, each scored by the analytic roofline cost
-model (``plan/cost.py``, priced for the H100), so the first offer is the
-cheapest modeled slowdown, not merely the smallest memory.
+(global batch, gradient-accumulation microbatches, remat policy, mesh
+topology, optional vocab padding, host offload, and for a serving mix
+the page size x concurrency x KV dtype x prefix-cache grid) and return
+a ranked list of :class:`CounterOffer`\\ s that *do* fit the capacity,
+each scored by the analytic roofline cost model (``plan/cost.py``,
+priced for the H100), so the first offer is the cheapest modeled
+slowdown, not merely the smallest memory.
 
 The search is **trace-frugal**: every knob goes through the cheapest
 estimation that is exact for it.
 
+* **topology** — the traced program does not depend on the mesh, so
+  the whole (pod, data, model, fsdp) grid replays the baseline's cached
+  traces (``AdmissionService.mesh_sweep``): zero fresh traces;
 * **batch** — only the input shapes change, so the candidates ride
   ``AdmissionService.decide_sweep``'s affine trace model; the rejected
   batch is swept along as the max-probe anchor;
-* **microbatches / remat** — these change the traced program, so each
-  distinct candidate costs one fresh forward+backward trace (the
-  optimizer phases stay warm through the content-addressed cache);
+* **microbatches / remat / pad_vocab** — these change the traced
+  program, so each distinct candidate costs one fresh forward+backward
+  trace (the optimizer phases stay warm through the content-addressed
+  cache);
 * **offload** — only the orchestrator's offload pass and the replay
   change, so every candidate replays the baseline's traces: zero fresh
   traces;
@@ -35,16 +40,15 @@ Every offer is *reproducible*: ``CounterOffer.admission_request``
 rebuilds the exact request, and a direct ``AdmissionService.decide`` on
 it yields the offer's estimate bit-identically.
 
-Deltas from the reference, each for the port's admission rule or for
-what is not ported yet:
+A topology offer carries the spec-driven shard factors and collective
+specs the mesh sweep used (``admission_request`` rebuilds them), so its
+decision reproduces the sweep's row to the byte.
 
-* a candidate is feasible when its decision admits (its replay at the
-  capacity did not run out of memory and its peak fits), the service's
-  rule; the reference compares the unbounded peak with the capacity;
-* the mesh axes (``devices``, ``base_topology``, ``pad_vocab_multiple``)
-  and a request's own shard factors or collective specs need the
-  sharding module and raise ``NotImplementedError`` naming slice 11 of
-  the port, only when asked for: the default space has none.
+Delta from the reference, for the port's admission rule: a candidate is
+feasible when its replay at the capacity did not run out of memory and
+its peak fits (the service's rule; the mesh sweep replays each topology
+at the capacity for it); the reference compares the unbounded peak with
+the capacity.
 """
 from __future__ import annotations
 
@@ -56,8 +60,9 @@ from typing import Any, Callable
 from ..configs.base import ModelConfig, ShapeSpec
 from ..core.orchestrator import OffloadPlan, ServingKnobs
 from ..obs import spans as obs_spans
+from ..core.sweep import MeshTopology, topology_grid
 from ..service.admission import (AdmissionDecision, AdmissionRequest,
-                                 AdmissionService, _not_ported)
+                                 AdmissionService)
 from ..service.degrade import JobContext
 from ..train.train_step import TrainPolicy, make_estimator_hooks
 from .cost import plan_cost, serving_cost
@@ -70,16 +75,14 @@ class PlanSpace:
     """Which knobs the planner may turn, and how far.
 
     ``None`` means "derive a default grid from the rejected plan"; an
-    empty tuple switches the axis off. ``devices``, ``base_topology``
-    and ``pad_vocab_multiple`` are the mesh axes (slice 11 of the port:
-    asking for one raises)."""
+    empty tuple switches the axis off."""
 
     batches: tuple | None = None        # explicit per-replica batch grid
     microbatches: tuple | None = None   # explicit accumulation factors
     remat: tuple | None = None          # explicit remat rungs to try
     devices: tuple = ()                 # device counts for the mesh grid
     pods: tuple = (1,)                  # pod counts forwarded to the grid
-    base_topology: Any = None           # fixed mesh for ALL plans
+    base_topology: MeshTopology | None = None  # fixed mesh for ALL plans
     pad_vocab_multiple: int | None = None      # padded-vocab mesh variants
     batch_halvings: int = 3             # default batch grid depth
     mb_doublings: int = 2               # default microbatch grid depth
@@ -143,7 +146,7 @@ class CounterOffer:
     global_batch: int
     microbatches: int
     remat: str
-    topology: Any
+    topology: MeshTopology | None
     pad_vocab_multiple: int | None
     capacity: int
     peak_bytes: int
@@ -238,22 +241,26 @@ class CounterOffer:
                           collective_specs=()) -> AdmissionRequest:
         """The exact admission request this offer promises will fit:
         ``AdmissionService.decide`` on it reproduces ``peak_bytes``
-        bit-identically. The request carries the offered job as
-        ``meta["job"]`` (the analytic rung's configuration bound)."""
-        if shard_factor_fn is not None or collective_specs \
-                or self.topology is not None:
-            raise _not_ported("mesh counter-offers (shard factors, "
-                              "collectives, topologies)", 11)
+        bit-identically (topology offers carry the same spec-driven
+        shard factors and collective specs the mesh sweep used; pass
+        ``shard_factor_fn``/``collective_specs`` when the original
+        request pinned its own execution model). The request carries the
+        offered job as ``meta["job"]`` (the analytic rung's
+        configuration bound)."""
         from ..configs.registry import input_specs
         from ..models import model as M
         cfg2, policy2, shape2 = self.apply(cfg, policy, shape)
         fwd, upd, init = make_estimator_hooks(cfg2, policy2)
+        params = M.abstract_params(cfg2)
+        batch = input_specs(cfg2, shape2)
+        kw = _factor_kwargs(cfg2, params, batch, self.topology, init,
+                            shard_factor_fn, collective_specs)
         return AdmissionRequest(
-            job_id or f"{self.job_id}+offer", fwd, M.abstract_params(cfg2),
-            input_specs(cfg2, shape2), update_fn=upd, opt_init_fn=init,
+            job_id or f"{self.job_id}+offer", fwd, params, batch,
+            update_fn=upd, opt_init_fn=init,
             capacity=self.capacity if capacity is None else capacity,
             offload=self.offload_plan(),
-            meta={"job": JobContext(cfg2, policy2, shape2)})
+            meta={"job": JobContext(cfg2, policy2, shape2)}, **kw)
 
 
 @dataclasses.dataclass
@@ -287,22 +294,37 @@ class PlanResult:
 
 
 # ---------------------------------------------------------------------------
-def _check_space(space: PlanSpace, shard_factor_fn=None,
-                 collective_specs=()) -> None:
-    """The mesh axes wait for the sharding module: raise only when one
-    is asked for."""
-    if space.devices:
-        raise _not_ported("the planner's topology axis (PlanSpace."
-                          "devices)", 11)
-    if space.base_topology is not None:
-        raise _not_ported("the planner's fixed mesh (PlanSpace."
-                          "base_topology)", 11)
-    if space.pad_vocab_multiple is not None:
-        raise _not_ported("the planner's padded-vocab mesh variants "
-                          "(PlanSpace.pad_vocab_multiple)", 11)
-    if shard_factor_fn is not None or collective_specs:
-        raise _not_ported("planning under shard factors or collective "
-                          "specs", 11)
+def _factor_kwargs(cfg, params, batch, topo: MeshTopology | None,
+                   opt_init_fn, custom_factor_fn=None,
+                   custom_collectives=(), opt_state=None) -> dict:
+    """shard_factor_fn / collective_specs for a plan's mesh, built the
+    way ``estimate_mesh_sweep`` builds them (spec mode, the optimizer
+    state's shapes from ``opt_init_fn`` on the meta parameters), so
+    direct decisions reproduce sweep estimates. A caller-supplied
+    factor function or collective specs (the rejected request's own
+    execution model) override the mesh derivation; ``opt_state``
+    skips the per-candidate ``opt_init_fn`` call (the optimizer shapes
+    do not depend on the batch)."""
+    if custom_factor_fn is not None or custom_collectives:
+        kw = {}
+        if custom_factor_fn is not None:
+            kw["shard_factor_fn"] = custom_factor_fn
+        if custom_collectives:
+            kw["collective_specs"] = tuple(custom_collectives)
+        return kw
+    if topo is None:
+        return {}
+    from ..distributed.sharding import (mesh_collective_specs,
+                                        shard_factor_fn)
+    pol = topo.sharding_policy()
+    if opt_state is None and opt_init_fn is not None:
+        opt_state = opt_init_fn(params)
+    return {
+        "shard_factor_fn": shard_factor_fn(
+            cfg, topo.axis_sizes, pol, params=params,
+            opt_state=opt_state, batch=batch),
+        "collective_specs": mesh_collective_specs(topo.axis_sizes, pol),
+    }
 
 
 def _batch_candidates(space: PlanSpace, b0: int, m0: int) -> tuple:
@@ -355,6 +377,13 @@ def _offload_candidates(space: PlanSpace) -> tuple:
     return tuple(out)
 
 
+def _topologies(space: PlanSpace) -> tuple:
+    if space.base_topology is not None or not space.devices:
+        return ()
+    return tuple(t for n in space.devices
+                 for t in topology_grid(n, pods=space.pods))
+
+
 def serving_trace_budget(space: PlanSpace, base: ServingKnobs) -> int:
     """Most traces a serving search may cost, its baseline's included:
     1 + the distinct ``max_concurrent`` values of its grid (the decode
@@ -366,19 +395,20 @@ def serving_trace_budget(space: PlanSpace, base: ServingKnobs) -> int:
 class RemediationPlanner:
     """Search the plan space around a rejected admission request.
 
-    Shares the service's content-addressed trace cache and its batched
-    sweep path, so repeated planner runs (and a planner run right after
-    the rejection that triggered it) stay warm.
+    Shares the service's content-addressed trace cache, its batched
+    sweep path and its mesh-sweep path, so repeated planner runs (and a
+    planner run right after the rejection that triggered it) stay warm.
     """
 
     def __init__(self, service: AdmissionService | None = None):
         self.service = service or AdmissionService(workers=1)
 
     def _request(self, job_id, fwd, params, batch, upd, init, capacity,
-                 offload=None) -> AdmissionRequest:
+                 factor_kwargs, offload=None) -> AdmissionRequest:
         return AdmissionRequest(job_id, fwd, params, batch,
                                 update_fn=upd, opt_init_fn=init,
-                                capacity=capacity, offload=offload)
+                                capacity=capacity, offload=offload,
+                                **factor_kwargs)
 
     # -- the search ----------------------------------------------------------
     def plan(self, cfg: ModelConfig, policy: TrainPolicy,
@@ -390,19 +420,25 @@ class RemediationPlanner:
 
         ``baseline`` short-circuits the initial decision when the caller
         already holds the rejection (the ``AdmissionService.decide``
-        wiring). ``stats["fresh_traces"]`` counts trace-cache misses of
-        the search itself; the baseline decision, when the planner has
-        to make it, is counted as ``baseline_traces``."""
+        wiring); ``shard_factor_fn`` / ``collective_specs`` pin the
+        rejected request's own execution model on every candidate, and
+        the mesh axes (``devices`` / ``pad_vocab_multiple``) are then
+        off, since a topology offer under a foreign execution model
+        would quote a peak for the wrong sharding.
+        ``stats["fresh_traces"]`` counts trace-cache misses of the
+        search itself; the baseline decision, when the planner has to
+        make it, is counted as ``baseline_traces``."""
         space = space or PlanSpace()
-        _check_space(space, shard_factor_fn, collective_specs)
         # the rejecting decision's correlation ID, taken before the
         # candidates' decisions open their own scopes, so the plan's
         # audit record chains to the rejection it remediates
         cid = obs_spans.current_correlation_id()
         with obs_spans.span("planner.plan", job_id=job_id):
-            result = self._plan_search(cfg, policy, shape,
-                                       capacity=capacity, space=space,
-                                       job_id=job_id, baseline=baseline)
+            result = self._plan_search(
+                cfg, policy, shape, capacity=capacity, space=space,
+                job_id=job_id, baseline=baseline,
+                shard_factor_fn=shard_factor_fn,
+                collective_specs=collective_specs)
         self._audit_plan("training", job_id, cid, result)
         return result
 
@@ -424,23 +460,36 @@ class RemediationPlanner:
 
     def _plan_search(self, cfg: ModelConfig, policy: TrainPolicy,
                      shape: ShapeSpec, *, capacity: int, space: PlanSpace,
-                     job_id: str,
-                     baseline: AdmissionDecision | None) -> PlanResult:
+                     job_id: str, baseline: AdmissionDecision | None,
+                     shard_factor_fn, collective_specs) -> PlanResult:
         from ..configs.registry import input_specs
         from ..models import model as M
         svc = self.service
         cache = svc.cache
         t0 = time.perf_counter()
         b0, m0 = shape.global_batch, max(policy.microbatches, 1)
+        base_topo = space.base_topology
         fwd, upd, init = make_estimator_hooks(cfg, policy)
         params = M.abstract_params(cfg)
         batch0 = input_specs(cfg, shape)
+        # the optimizer's shapes do not depend on the batch: resolved
+        # once for every candidate's spec factors
+        opt_state0 = None
+        if base_topo is not None and shard_factor_fn is None \
+                and init is not None:
+            opt_state0 = init(params)
 
+        def factor_kw(c, p, b):
+            return _factor_kwargs(c, p, b, base_topo, init,
+                                  shard_factor_fn, collective_specs,
+                                  opt_state=opt_state0)
+
+        base_kw = factor_kw(cfg, params, batch0)
         before = cache.thread_stats()
         if baseline is None:
             baseline = svc.decide(self._request(
                 f"{job_id}/baseline", fwd, params, batch0, upd, init,
-                capacity))
+                capacity, base_kw))
         baseline_traces = cache.thread_stats()["misses"] \
             - before["misses"]
 
@@ -453,11 +502,12 @@ class RemediationPlanner:
             return PlanResult([], baseline, stats)
 
         before = cache.thread_stats()
-        base_cost = plan_cost(cfg, shape, microbatches=m0)
+        base_cost = plan_cost(cfg, shape, microbatches=m0,
+                              topology=base_topo)
         offers: list[CounterOffer] = []
 
-        def add(knob, d: AdmissionDecision, *, gb=b0, mb=m0, cfg2=None,
-                offload=None):
+        def add(knob, d: AdmissionDecision, *, gb=b0, mb=m0, topo=base_topo,
+                cfg2=None, pad=None, offload=None):
             stats["candidates"] += 1
             if not d.admit:
                 return
@@ -468,12 +518,13 @@ class RemediationPlanner:
             bd = d.breakdown or {}
             transfer = bd.get("offload", {}).get(
                 "transfer_bytes_per_iter", 0)
-            cost = plan_cost(c2, shape2, microbatches=mb,
+            cost = plan_cost(c2, shape2, microbatches=mb, topology=topo,
                              offload_transfer_bytes=transfer)
             offers.append(CounterOffer(
                 job_id=job_id, knob=knob, global_batch=gb,
-                microbatches=mb, remat=c2.remat, topology=None,
-                pad_vocab_multiple=c2.pad_vocab_multiple,
+                microbatches=mb, remat=c2.remat, topology=topo,
+                pad_vocab_multiple=pad if pad is not None
+                else c2.pad_vocab_multiple,
                 capacity=capacity, peak_bytes=d.peak_bytes,
                 safe_threshold=d.safe_threshold, cost=cost,
                 slowdown=(cost["device_s_per_token"]
@@ -485,16 +536,63 @@ class RemediationPlanner:
                                      if offload is not None else 0.0),
                 space_peaks=bd.get("space_peaks")))
 
+        def sweep_rows(knob, res, **kw):
+            """A mesh sweep's rows as candidates, each decided by the
+            service's rule (the sweep replayed it at the capacity)."""
+            for topo, rep in res:
+                add(knob, AdmissionDecision(
+                    job_id=f"{job_id}/{knob}-{topo.label}",
+                    admit=not rep.oom and rep.peak_bytes <= capacity,
+                    capacity=capacity, peak_bytes=rep.peak_bytes,
+                    peak_tensor_bytes=rep.peak_tensor_bytes,
+                    persistent_bytes=rep.persistent_bytes,
+                    safe_threshold=rep.peak_bytes,
+                    breakdown=rep.breakdown,
+                    provenance={"source": "mesh-sweep"}, wall_s=0.0,
+                    report=rep), topo=topo, **kw)
+
+        # --- topology axis: replays of the cached phases -------------
+        # a caller-pinned execution model (custom factors / collectives)
+        # describes the job's current placement; the planner cannot
+        # reason about how it composes with a different mesh, so the
+        # mesh axes are off rather than answered under the wrong model
+        custom_model = shard_factor_fn is not None \
+            or bool(collective_specs)
+        topos = () if custom_model else _topologies(space)
+        if topos:
+            sweep_rows("topology", svc.mesh_sweep(
+                fwd, params, batch0, topos, update_fn=upd, opt_init_fn=init,
+                cfg=cfg, capacity=capacity))
+            stats["axes"]["topology"] = len(topos)
+
+        # --- padded-vocab mesh variants (only useful with model > 1) ---
+        if (space.pad_vocab_multiple and not custom_model
+                and cfg.pad_vocab_multiple is None
+                and cfg.vocab % space.pad_vocab_multiple):
+            mp = tuple(t for t in topos if t.model > 1)
+            if mp:
+                cfgp = dataclasses.replace(
+                    cfg, pad_vocab_multiple=space.pad_vocab_multiple)
+                fwdp, updp, initp = make_estimator_hooks(cfgp, policy)
+                sweep_rows("pad_vocab", svc.mesh_sweep(
+                    fwdp, M.abstract_params(cfgp), input_specs(cfgp, shape),
+                    mp, update_fn=updp, opt_init_fn=initp, cfg=cfgp,
+                    capacity=capacity), cfg2=cfgp,
+                    pad=space.pad_vocab_multiple)
+                stats["axes"]["pad_vocab"] = len(mp)
+
         # --- batch axis: the sweep's affine trace model, the rejected
         # batch as the max-probe anchor (excluded from the offers) -----
         batches = _batch_candidates(space, b0, m0)
         if batches:
             grid = (b0,) + batches
-            reqs = [self._request(
-                f"{job_id}/b{b}", fwd, params,
-                input_specs(cfg, dataclasses.replace(shape,
-                                                     global_batch=b)),
-                upd, init, capacity) for b in grid]
+            reqs = []
+            for b in grid:
+                batch_b = input_specs(
+                    cfg, dataclasses.replace(shape, global_batch=b))
+                reqs.append(self._request(
+                    f"{job_id}/b{b}", fwd, params, batch_b, upd, init,
+                    capacity, factor_kw(cfg, params, batch_b)))
             decisions = svc.decide_sweep(reqs)
             for b, d in zip(grid, decisions):
                 if b != b0:
@@ -517,16 +615,18 @@ class RemediationPlanner:
         stats["axes"]["remat"] = sum(1 for s in singles
                                      if s[0] == "remat")
         singles.sort(key=lambda s: plan_cost(
-            s[1], shape, microbatches=s[3].get("mb", m0))[
-                "device_s_per_token"])
+            s[1], shape, microbatches=s[3].get("mb", m0),
+            topology=base_topo)["device_s_per_token"])
         for knob, cfg2, pol2, meta in singles:
             if space.early_stop and offers:
                 break
             f2, u2, i2 = make_estimator_hooks(cfg2, pol2)
             params2 = M.abstract_params(cfg2)
+            batch2 = input_specs(cfg2, shape)
             d = svc.decide(self._request(
                 f"{job_id}/{knob}{meta.get('mb', cfg2.remat)}", f2,
-                params2, input_specs(cfg2, shape), u2, i2, capacity))
+                params2, batch2, u2, i2, capacity,
+                factor_kw(cfg2, params2, batch2)))
             add(knob, d, mb=meta.get("mb", m0), cfg2=cfg2)
 
         # --- offload axis: the traced program is offload-independent,
@@ -540,7 +640,7 @@ class RemediationPlanner:
                    f"-act{op.activations:g}")
             d = svc.decide(self._request(
                 f"{job_id}/offload-{tag}", fwd, params, batch0, upd, init,
-                capacity, offload=op))
+                capacity, base_kw, offload=op))
             add("offload", d, offload=op)
 
         after = cache.thread_stats()
@@ -568,7 +668,6 @@ class RemediationPlanner:
         the serving roofline (``serving_cost``), and each reproduces
         bit-identically through a direct ``decide_serving`` with
         ``CounterOffer.serving_knobs()``."""
-        _check_space(ctx.space or PlanSpace())
         cid = obs_spans.current_correlation_id()
         with obs_spans.span("planner.plan_serving", job_id=job_id):
             result = self._plan_serving_search(
@@ -699,17 +798,20 @@ def run_plan_search(arch: str, hbm_bytes: int, *, seq: int = 48,
                     offload: bool = True,
                     space: PlanSpace | None = None,
                     service: AdmissionService | None = None,
-                    verbose: bool = True) -> dict:
+                    verbose: bool = True,
+                    n_layers: int | None = None) -> dict:
     """Plan a training job of ``arch`` (its smoke config by default)
     that does not fit ``hbm_bytes`` and print/return the ranked offers.
     ``offload`` adds the host-offload axes (optimizer state + half the
     activations) to the default space; offload offers print their
-    per-space peaks. The reference's default ``devices`` grid is the
-    mesh axis, which raises (slice 11 of the port): pass
-    ``devices=()`` for a single-device search."""
+    per-space peaks. ``devices`` is the topology axis's grid of device
+    counts (``()`` for a single-device search); ``n_layers`` cuts the
+    depth."""
     from ..configs import get_config, get_smoke
     from ..configs.base import smoke_shape
     cfg = get_smoke(arch) if smoke else get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     if remat is not None:
         cfg = dataclasses.replace(cfg, remat=remat)
     policy = TrainPolicy(optimizer="adamw",
@@ -741,9 +843,10 @@ def run_plan_search(arch: str, hbm_bytes: int, *, seq: int = 48,
                   f"{res.stats['fresh_traces']} fresh traces, "
                   f"{res.stats['wall_s']*1e3:.0f} ms", flush=True)
             for i, o in enumerate(res.offers):
+                topo = o.topology.label if o.topology else "1dev"
                 line = (f"[xmem-plan]   #{i+1} {o.knob:10s} "
                         f"b={o.global_batch:<4d} mb={o.microbatches:<3d} "
-                        f"remat={o.remat:5s} {'1dev':12s} "
+                        f"remat={o.remat:5s} {topo:12s} "
                         f"peak={o.peak_bytes/2**20:7.2f} MiB "
                         f"slowdown=x{o.slowdown:.2f}")
                 if o.space_peaks:

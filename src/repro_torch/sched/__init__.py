@@ -13,8 +13,9 @@ with whom, and what happens when that device dies mid-run:
   driven best-fit bin-packing with domain spreading, priority
   preemption, counter-offer backfill into fragmentation holes, and
   evacuation (fail / flap / shrink / straggler drain) that re-admits
-  displaced jobs on warm caches (a displaced job that carries a plan
-  context raises: its elastic re-placement is slice 11c of the port);
+  displaced jobs on warm caches, those that carry a plan context
+  through ``train.elastic.shrink_and_replan`` (mesh re-carve, per-device
+  re-admission, the planner's counter-offer);
 * :mod:`repro_torch.sched.simulator` — :class:`FleetSimulator`: tick-driven
   chaos replay of thousands of arrivals with interleaved fleet events,
   scored by the two-round metrics plus fragmentation / evacuation

@@ -25,18 +25,22 @@ Placement policy, in order:
    of) fragmentation hole(s) is placed instead of losing the job.
 
 Evacuation (node fail / flap / shrink / straggler drain): displaced
-jobs re-enter admission through plain placement on warm caches. Every
+jobs re-enter admission on warm caches, through
+:func:`repro_torch.train.elastic.shrink_and_replan` when they carry a
+plan context (re-carve the mesh to the devices that still have room,
+re-admit with spec-driven per-device factors, apply the planner's
+counter-offer when the old plan no longer fits), through plain
+placement otherwise or when the elastic path finds no placement. Every
 re-placement goes through :meth:`Fleet.place`, which re-verifies the
 co-location invariant; an over-commit anywhere raises
 :class:`~repro_torch.service.faults.ChaosSafetyViolation`.
 
-Delta from the reference: a displaced job that carries a plan context
-is re-placed there through ``train.elastic.shrink_and_replan`` (re-carve
-the mesh to the surviving devices, re-admit with spec-driven per-device
-factors); that needs the sharding module and the mesh carving, which
-are slice 11c of the port, so here it raises ``NotImplementedError``
-instead of falling back to a plain placement the reference never makes
-for such a job.
+Delta from the reference: the reference's elastic path turns any
+exception of ``shrink_and_replan`` into "no elastic placement". Its own
+tests raise none there; the one refusal the path can meet by design, a
+model axis wider than the devices left (``replan_mesh``'s
+``ValueError``), is checked before the call and gives the same answer,
+and any error of the call itself propagates.
 """
 from __future__ import annotations
 
@@ -423,21 +427,62 @@ class FleetScheduler:
 
     def _replace(self, a: Assignment, tick: int
                  ) -> PlacementOutcome | None:
-        """Re-admission of a displaced job: plain (cache-warm)
-        placement, through ``Fleet.place`` — the invariant is
-        re-verified. A job that carries a plan context would re-enter
-        through the elastic shrink-and-replan path, not ported yet."""
+        """Re-admission of a displaced job: the elastic
+        shrink-and-replan path when it carries a plan context, plain
+        (cache-warm) placement otherwise. Either way the re-placement
+        goes through ``Fleet.place``: the invariant is re-verified."""
         job = a.arrival
         if job is None:
             return None
         if a.ctx is not None:
-            raise NotImplementedError(
-                f"re-placing displaced job {a.job_id!r}, which carries a "
-                f"plan context, needs the elastic shrink-and-replan path "
-                f"(train.elastic.shrink_and_replan over the mesh carving), "
-                f"which is not ported yet (slice 11c of the port)")
+            out = self._replace_elastic(a, job, tick)
+            if out is not None:
+                return out
         return self.place(job, tick, allow_preempt=False,
                           source="evacuation")
+
+    def _replace_elastic(self, a: Assignment, job: JobArrival, tick: int
+                         ) -> PlacementOutcome | None:
+        """Re-carve the displaced job's mesh to the devices that still
+        have room, re-admit on the new topology with spec-driven
+        factors, and apply the planner's counter-offer when the old
+        policy no longer fits (``shrink_and_replan``). None when no
+        elastic placement exists: too few holes for the model axis, no
+        admitted plan, or no nodes for it."""
+        from ..train.elastic import MeshPlan, shrink_and_replan
+        t0 = time.perf_counter()
+        ctx = a.ctx
+        holes = self.fleet.holes(job.device,
+                                 empty_only=not self.colocate)
+        if not holes:
+            return None
+        cur = MeshPlan(*(a.mesh or (1, 1, 1)))
+        avail = max(min(len(holes), cur.devices), 1)
+        if avail < cur.model:   # replan_mesh cannot keep the model axis:
+            return None         # plain placement runs
+        rp = shrink_and_replan(
+            ctx.cfg, ctx.policy, ctx.shape, cur, available_devices=avail,
+            hbm_bytes=holes[0][1], service=self.service, space=ctx.space)
+        if not rp.admitted:
+            return None
+        decision = rp.decision
+        offer = rp.offer
+        threshold = (decision.safe_threshold if decision.admit
+                     else offer.safe_threshold)
+        nodes = self._pick_nodes(threshold, n=rp.plan.devices,
+                                 family=job.family, device=job.device)
+        if nodes is None:
+            return None
+        a2 = self._assignment(
+            job, {nid: threshold for nid in nodes}, decision, tick,
+            source="evacuation", topology=rp.topology.label,
+            mesh=(rp.plan.pod, rp.plan.data, rp.plan.model))
+        self.fleet.place(a2)
+        self._count_place(a2)
+        return PlacementOutcome(
+            job.job_id, True, "evacuation", assignment=a2,
+            decision=decision, offer=offer,
+            wall_s=time.perf_counter() - t0)
 
     # -- straggler migration -------------------------------------------------
     def note_step_time(self, node_id: str, step_time_s: float) -> None:

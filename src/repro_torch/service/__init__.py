@@ -23,9 +23,10 @@ service:
 
 Counter-offers come from the remediation planner
 (:mod:`repro_torch.plan`); the fleet scheduler over this service is
-:mod:`repro_torch.sched`. Sharded estimates (``distributed/``), the
-mesh parts and the scheduler's elastic re-placement are slice 11c of
-the port.
+:mod:`repro_torch.sched`. Sharded requests carry the spec-driven shard
+factors and collective specs of :mod:`repro_torch.distributed`;
+``AdmissionService.mesh_sweep`` estimates a grid of mesh topologies
+from one trace.
 """
 from .admission import (AdmissionDecision, AdmissionRequest,  # noqa: F401
                         AdmissionService)

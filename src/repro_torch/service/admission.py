@@ -77,8 +77,18 @@ rejection with ``decide_serving(plan=...)``, comes back with the
 remediation planner's ranked counter-offers. A request with an
 ``offload`` plan is estimated with the orchestrator's host-offload pass
 (its device peak is the verdict; ``breakdown["space_peaks"]`` has every
-space's). ``mesh_sweep`` and requests with shard factors or collectives
-need the sharding module (slice 11 of the port).
+space's).
+
+A request with ``shard_factor_fn``/``collective_specs``
+(``repro_torch.distributed.sharding``) is decided on one device's
+share of a sharded job, on every rung as in the JAX package: the exact
+rung and the batched sweep estimate per device; the sweep-log rung
+answers from earlier decisions of its family (whose key says whether
+the request is sharded); the analytic rung bounds the job unsharded,
+which only over-answers.
+``decide_serving(shard_factor_fn=...)`` shards a serving step's blocks.
+``mesh_sweep`` estimates a grid of mesh topologies from one trace (the
+remediation planner's topology axis).
 """
 from __future__ import annotations
 
@@ -107,11 +117,6 @@ from .store import TraceStore
 #: the rung thread's abandonment flag (set by ``_call_with_deadline``
 #: when the deadline passes; read at the estimator's stage checkpoints)
 _RUNG = threading.local()
-
-
-def _not_ported(what: str, slice_no: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (slice {slice_no} of the port)")
 
 
 @dataclasses.dataclass
@@ -499,9 +504,6 @@ class AdmissionService:
         if req.capacity is None:
             raise ValueError(f"request {req.job_id!r} has no capacity "
                              f"(the device's bytes)")
-        if req.shard_factor_fn is not None or req.collective_specs:
-            raise _not_ported("sharded estimates (shard factors, "
-                              "collectives)", 11)
 
     def decide(self, req: AdmissionRequest) -> AdmissionDecision:
         """Synchronous decision for one request. With a fault plan or a
@@ -560,6 +562,8 @@ class AdmissionService:
                 rep = est.estimate_training(
                     req.fwd_bwd_fn, req.params, req.batch,
                     update_fn=req.update_fn, opt_init_fn=req.opt_init_fn,
+                    shard_factor_fn=req.shard_factor_fn,
+                    collective_specs=req.collective_specs,
                     capacity=req.capacity)
                 min_cap = None
                 if req.probe_min_capacity:
@@ -741,9 +745,8 @@ class AdmissionService:
         serving knobs separating evidence families. A request-driven
         rejection carrying a ``plan``
         (:class:`~repro_torch.plan.ServingPlanContext`) comes back with
-        ranked serving counter-offers."""
-        if shard_factor_fn is not None:
-            raise _not_ported("sharded serving estimates", 11)
+        ranked serving counter-offers. ``shard_factor_fn`` makes both
+        modes one device's estimate of a sharded serving step."""
         t0 = time.perf_counter()
         if deadline_s is None:
             deadline_s = self.degrade.default_deadline_s
@@ -766,7 +769,7 @@ class AdmissionService:
                     decode_fn, params, cache_tree, batch, stream=stream,
                     knobs=knobs, kv_bytes_per_token=kv_bytes_per_token,
                     resident_bytes_per_request=resident_bytes_per_request,
-                    capacity=capacity)
+                    shard_factor_fn=shard_factor_fn, capacity=capacity)
                 rep = EstimateReport(
                     peak_bytes=se.worst_case_peak_bytes,
                     peak_tensor_bytes=se.steady_state_peak_bytes,
@@ -778,7 +781,9 @@ class AdmissionService:
                     num_events=se.num_events)
             else:
                 rep = est.estimate_serving(decode_fn, params, cache_tree,
-                                           batch, capacity=capacity)
+                                           batch,
+                                           shard_factor_fn=shard_factor_fn,
+                                           capacity=capacity)
             return rep, _provenance(cache, before)
 
         req = AdmissionRequest(job_id, decode_fn, params, batch,
@@ -898,7 +903,8 @@ class AdmissionService:
         timeout = min(bounded) if bounded else None
         points = [SweepPoint(
             r.fwd_bwd_fn, r.params, r.batch, update_fn=r.update_fn,
-            opt_init_fn=r.opt_init_fn, capacity=r.capacity)
+            opt_init_fn=r.opt_init_fn, shard_factor_fn=r.shard_factor_fn,
+            collective_specs=r.collective_specs, capacity=r.capacity)
             for r in reqs]
 
         def run_sweep():
@@ -956,10 +962,23 @@ class AdmissionService:
                 self._audit_decision(dec, via="sweep")
             return decisions
 
-    def mesh_sweep(self, *args, **kwargs):
-        """Per-device estimates over a mesh-topology grid: needs the
-        sharding module, which is not ported."""
-        raise _not_ported("mesh sweeps (distributed/sharding.py)", 11)
+    def mesh_sweep(self, fwd_bwd_fn, params, batch, topologies, *,
+                   update_fn=None, opt_init_fn=None, cfg=None,
+                   shard_factors: str = "spec", collectives: bool = True,
+                   capacity: int | None = None):
+        """Per-device estimates over a mesh-topology grid from ONE
+        cached trace (``SweepService.estimate_mesh_sweep``), serialized
+        on the service's single sweep estimator like ``decide_sweep``:
+        the remediation planner's trace-free topology axis. With
+        ``capacity`` each topology replays at it, as ``decide`` does."""
+        with self.obs.request("mesh_sweep"), self._sweep_lock:
+            result = self.sweep.estimate_mesh_sweep(
+                fwd_bwd_fn, params, batch, topologies,
+                update_fn=update_fn, opt_init_fn=opt_init_fn, cfg=cfg,
+                shard_factors=shard_factors, collectives=collectives,
+                capacity=capacity)
+        self._m_requests.inc(len(result))
+        return result
 
     def stats(self) -> dict:
         return {"requests_served": self.requests_served,

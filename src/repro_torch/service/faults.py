@@ -44,9 +44,9 @@ a deadline abandons the rung, and ``FaultPlan.cancel()`` — called when
 ``path`` to half its size), ``event`` (a fleet-level topology event at
 one of the ``node.*`` sites above — consumed via :meth:`FaultPlan.poll`
 by the fleet simulator, a no-op under :meth:`FaultPlan.check`). Used by
-``tests/test_torch_faults.py`` and ``ClusterSimulator.replay(faults=...)``
-chaos mode; the ``node.*`` sites stay valid names for the fleet
-simulator, which is not ported yet.
+``tests/test_torch_faults.py``, ``ClusterSimulator.replay(faults=...)``
+chaos mode and the fleet simulator (``sched/simulator.py``), which
+polls the ``node.*`` sites.
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ import threading
 from typing import Sequence
 
 #: Fleet-topology event sites, polled (not checked) once per arrival
-#: tick by the fleet simulator (``sched/``, not ported yet).
+#: tick by the fleet simulator (``sched/simulator.py``).
 FLEET_SITES = ("node.fail", "node.flap", "node.shrink")
 
 

@@ -4,12 +4,11 @@
 Elasticity model: the mesh is re-carved along the ``data``/``pod`` axes
 when nodes join or leave (``replan_mesh``), keeping the model axis, and
 the global batch is preserved by resizing each replica's share
-(``reshard_batch_size``). Both are pure arithmetic, copied. The
-reference's ``shrink_and_replan`` (``ElasticReplan``) re-admits the job
-on the re-carved mesh with spec-driven per-device shard factors; it
-needs the sharding module and the planner's mesh axes, which are not
-ported (slice 11c of the port; ``sched/`` is ported, and its
-re-placement of a displaced job that carries a plan raises until then).
+(``reshard_batch_size``). ``shrink_and_replan`` (``ElasticReplan``)
+re-admits the job on the re-carved mesh with spec-driven per-device
+shard factors and, when the old plan no longer fits, applies the
+remediation planner's best counter-offer on that mesh; the fleet
+scheduler re-places a displaced job that carries a plan through it.
 
 Deterministic shard assignment means any spare worker can recompute a
 slow worker's shard; ``StragglerMonitor`` is the detection half: each
@@ -68,6 +67,61 @@ def reshard_batch_size(global_batch: int, old: MeshPlan, new: MeshPlan
     divisible, round up per replica and trim in the data pipeline)."""
     replicas = new.pod * new.data
     return -(-global_batch // replicas)
+
+
+@dataclasses.dataclass
+class ElasticReplan:
+    """Outcome of a shrink event: the re-carved mesh, the admission
+    decision on it, and, when the old policy no longer fits, the
+    planner's counter-offer already applied to (cfg, policy, shape)."""
+
+    plan: MeshPlan                  # the re-carved mesh
+    topology: object                # MeshTopology used for admission
+    decision: object                # AdmissionDecision on the new mesh
+    offer: object | None            # applied CounterOffer (or None)
+    cfg: object
+    policy: object
+    shape: object
+
+    @property
+    def admitted(self) -> bool:
+        return bool(self.decision.admit or self.offer is not None)
+
+
+def shrink_and_replan(cfg, policy, shape, current: MeshPlan,
+                      available_devices: int, hbm_bytes: int, *,
+                      fsdp: bool | None = None, min_model: int = 1,
+                      service=None, space=None) -> ElasticReplan:
+    """Shrink event -> planner: after ``replan_mesh`` re-carves the
+    mesh, re-admit the job on the new topology with spec-driven
+    per-device factors instead of assuming the old policy still fits;
+    on rejection, search microbatch/batch remediations *on that mesh*
+    (``PlanSpace.base_topology``) and apply the best counter-offer.
+    Returns the updated (cfg, policy, shape) beside the decision, so the
+    training driver can restart from a checkpoint with a plan that fits
+    the smaller fleet. fsdp defaults to on above 8e9 parameters, as in
+    the JAX package."""
+    from ..core.sweep import MeshTopology
+    from ..plan import PlanSpace, RemediationPlanner
+
+    new = replan_mesh(current, available_devices, min_model=min_model)
+    if fsdp is None:
+        fsdp = cfg.param_count() > 8e9
+    topo = MeshTopology(pod=new.pod, data=new.data, model=new.model,
+                        fsdp=bool(fsdp) and new.pod * new.data > 1)
+    space = space or PlanSpace(remat=())
+    space = dataclasses.replace(space, base_topology=topo, devices=())
+    planner = RemediationPlanner(service)
+    res = planner.plan(cfg, policy, shape, capacity=hbm_bytes,
+                       space=space, job_id=f"{cfg.name}/shrink")
+    offer = None
+    cfg2, policy2, shape2 = cfg, policy, shape
+    if not res.baseline.admit and res.offers:
+        offer = res.offers[0]
+        cfg2, policy2, shape2 = offer.apply(cfg, policy, shape)
+    return ElasticReplan(plan=new, topology=topo, decision=res.baseline,
+                         offer=offer, cfg=cfg2, policy=policy2,
+                         shape=shape2)
 
 
 class StragglerMonitor:

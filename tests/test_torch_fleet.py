@@ -15,7 +15,13 @@ package's (``repro.sched``), on the CPU.
   fleet charges each decision's safe threshold (a degraded one its
   widened threshold), a plan-carrying arrival is backfilled with the
   planner's first offer that fits a hole, and a plan-carrying displaced
-  job raises ``NotImplementedError`` naming slice 11c of the port.
+  job is re-placed through ``shrink_and_replan`` (the reference's
+  ``test_displaced_plan_job_replans_through_elastic``).
+* Elastic re-placement over a stub service per package whose estimate
+  of a request is computed from its trees and its own shard factors: a
+  job backfilled on a topology offer, then displaced, lands on the same
+  re-carved mesh, nodes and charges in both packages; an unexpected
+  error of the port's elastic path propagates.
 """
 import contextlib
 import dataclasses
@@ -26,8 +32,16 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import repro.core.events as jevents
+import repro.core.sweep as jsweep
+import repro.distributed.sharding as jsharding
+import repro.plan as jplan
 import repro.sched as jsched
 import repro.service as jservice
+import repro_torch.core.events as tevents
+import repro_torch.core.sweep as tsweep
+import repro_torch.distributed.sharding as tsharding
+import repro_torch.plan as tplan
 import repro_torch.sched as tsched
 import repro_torch.service as tservice
 import torch_service_jobs as jobs
@@ -639,16 +653,186 @@ def test_a_plan_carrying_arrival_is_backfilled_with_the_first_offer_that_fits(
     assert fleet.assignments["bf"].source == "counter-offer"
 
 
-def test_a_displaced_plan_carrying_job_raises_naming_slice_11c(svc):
+def test_displaced_plan_job_replans_through_elastic(svc):
+    """A displaced job carrying a PlanContext re-enters admission
+    through shrink_and_replan: re-carved mesh, spec-driven factors,
+    topology recorded on the new assignment."""
     fleet = tsched.Fleet([tsched.Node("n0", 1 << 30),
                           tsched.Node("n1", 1 << 30)])
     s = tsched.FleetScheduler(svc, fleet)
     out = s.place(_smoke_arrival("el", 8, 1 << 30))
     assert out.placed and out.kind == "decide"
-    with pytest.raises(NotImplementedError, match="slice 11c"):
-        s.evacuate_node(out.node_ids[0], "node.fail")
-    fleet.restore(out.node_ids[0])
-    # a job without a plan is re-placed on warm caches
+    (home,) = out.node_ids
+    evac = s.evacuate_node(home, "node.fail")
+    assert evac.replaced == ["el"] and not evac.lost
+    a = fleet.assignments["el"]
+    assert a.source == "evacuation" and a.topology == "1x1x1"
+    assert a.mesh == (1, 1, 1) and home not in a.shares
+    # charged the re-admission's threshold on the one device left
+    d = svc.decide(_smoke_arrival("el2", 8, 1 << 30).request())
+    assert list(a.shares.values()) == [d.safe_threshold]
+    fleet.check_invariant()
+    fleet.restore(home)
+    # a job without a plan is re-placed on warm caches, plainly
     plain = s.place(_smoke_arrival("plain", 8, 1 << 30, plan=False))
     evac = s.evacuate_node(plain.node_ids[0], "node.fail")
-    assert evac.replaced == ["plain"] and not evac.lost
+    assert "plain" in evac.replaced and not evac.lost
+    assert fleet.assignments["plain"].topology is None
+
+
+# -- elastic re-placement over stub estimates, both packages -------------------
+ELASTIC = {"jax": (jsched, jservice, jevents, jsharding, jsweep, jplan),
+           "torch": (tsched, tservice, tevents, tsharding, tsweep, tplan)}
+
+
+class _Estimates:
+    """A service whose estimate of a request is computed from its own
+    trees through the package's own shard factors: every parameter held
+    four times (parameter, gradient, two moments) and 64 bytes of
+    transient per input byte, each at its per-device factor, plus 1 MiB.
+    Rejections that carry a plan get the package's planner's offers, as
+    the admission service attaches them; ``raise_on`` raises for a job
+    id that ends with it."""
+
+    def __init__(self, pkg: str, raise_on: str | None = None):
+        (self.sched, self.service, self.events, self.sharding, self.sweep,
+         self.plan) = ELASTIC[pkg]
+        self.pkg, self.raise_on = pkg, raise_on
+        self.cache = types.SimpleNamespace(
+            thread_stats=lambda: {"hits": 0, "misses": 0, "store_hits": 0})
+        self.obs = None
+
+    def _leaves(self, tree):
+        if self.pkg == "jax":
+            import jax
+            return jax.tree_util.tree_leaves(tree)
+        from torch.utils import _pytree as pytree
+        return [x for x in pytree.tree_leaves(tree) if x is not None]
+
+    def _bytes(self, tree, kind, factor, per_byte):
+        BL, BK = self.events.BlockLifecycle, self.events.BlockKind
+        total = 0
+        for leaf in self._leaves(tree):
+            shape = tuple(int(d) for d in leaf.shape)
+            n = math.prod(shape) * leaf.dtype.itemsize
+            f = factor(BL(0, n, 0, None, block_kind=getattr(BK, kind),
+                          shape=shape)) if factor else 1.0
+            total += int(n * per_byte / max(f, 1.0))
+        return total
+
+    def peak(self, params, batch, factor=None):
+        return (self._bytes(params, "PARAM", factor, 4)
+                + self._bytes(batch, "INPUT", factor, 64) + (1 << 20))
+
+    def decide(self, req):
+        if self.raise_on and req.job_id.endswith(self.raise_on):
+            raise RuntimeError(f"unexpected: {req.job_id}")
+        p = self.peak(req.params, req.batch, req.shard_factor_fn)
+        d = self.service.AdmissionDecision(
+            job_id=req.job_id, admit=p <= req.capacity,
+            capacity=req.capacity, peak_bytes=p, peak_tensor_bytes=p,
+            persistent_bytes=0, safe_threshold=p, breakdown={},
+            provenance={"source": "stub", "sweep": {}}, wall_s=0.0)
+        ctx = req.meta.get("plan") if req.meta else None
+        if ctx is not None and not d.admit:
+            d.counter_offers = self.plan.RemediationPlanner(self).plan(
+                ctx.cfg, ctx.policy, ctx.shape, capacity=req.capacity,
+                space=ctx.space, job_id=req.job_id, baseline=d).offers
+        return d
+
+    def decide_sweep(self, reqs):
+        return [self.decide(r) for r in reqs]
+
+    def mesh_sweep(self, fwd, params, batch, topologies, *, cfg=None,
+                   capacity=None, **kw):
+        reports = []
+        for t in topologies:
+            f = self.sharding.shard_factor_fn(
+                cfg, t.axis_sizes, t.sharding_policy(), params=params,
+                batch=batch)
+            p = self.peak(params, batch, f)
+            reports.append(types.SimpleNamespace(
+                peak_bytes=p, peak_tensor_bytes=p, persistent_bytes=0,
+                oom=capacity is not None and p > capacity, breakdown={}))
+        return self.sweep.MeshSweepResult(list(topologies), reports, {})
+
+    def inject_faults(self, plan):
+        return contextlib.nullcontext()
+
+
+def _elastic_arrival(pkg: str, job_id: str, capacity: int):
+    sched, service, *_ = ELASTIC[pkg]
+    if pkg == "jax":
+        from repro.configs import get_smoke as get
+        from repro.configs.base import smoke_shape as shape_of
+        from repro.configs.registry import input_specs as specs
+        from repro.models import model as M
+        from repro.train import TrainPolicy as Policy
+        from repro.train import make_estimator_hooks as hooks
+        space = jplan.PlanSpace(devices=(2, 4), batches=(),
+                                microbatches=(), remat=())
+    else:
+        get, shape_of, specs, M = (get_smoke, smoke_shape, input_specs, TM)
+        Policy, hooks = TrainPolicy, make_estimator_hooks
+        space = tplan.PlanSpace(devices=(2, 4), batches=(),
+                                microbatches=(), remat=())
+    cfg = dataclasses.replace(get("qwen3-32b"), remat="none")
+    policy, shape = Policy(), shape_of(32, 64)
+    fwd, upd, init = hooks(cfg, policy)
+    ctx = ELASTIC[pkg][5].PlanContext(cfg, policy, shape, space=space)
+    return service.JobArrival(job_id, fwd, M.abstract_params(cfg),
+                              specs(cfg, shape), update_fn=upd,
+                              opt_init_fn=init, capacity=capacity,
+                              plan=ctx)
+
+
+def _elastic_case(pkg: str):
+    sched = ELASTIC[pkg][0]
+    stub = _Estimates(pkg)
+    one = _elastic_arrival(pkg, "probe", 1 << 40)
+    single = stub.decide(one.request()).peak_bytes
+    cap = single * 9 // 10
+    fleet = sched.Fleet([sched.Node(f"n{i}", cap, domain=f"d{i % 2}")
+                         for i in range(4)])
+    s = sched.FleetScheduler(stub, fleet)
+    out = s.place(_elastic_arrival(pkg, "mesh", cap))
+    assert out.placed and out.kind == "backfill"
+    assert out.offer.knob == "topology" and out.offer.n_devices > 1
+    a = fleet.assignments["mesh"]
+    home = sorted(a.shares)[0]
+    evac = s.evacuate_node(home, "node.fail")
+    assert evac.replaced == ["mesh"] and not evac.lost
+    b = fleet.assignments["mesh"]
+    assert b.source == "evacuation" and home not in b.shares
+    assert b.topology is not None and b.mesh is not None
+    fleet.check_invariant()
+    return (out.offer.topology.label, a.mesh, dict(a.shares),
+            _outcome(evac), b.topology, b.mesh, dict(b.shares),
+            fleet.snapshot(), s.stats())
+
+
+def test_elastic_replacement_equals_the_reference_on_the_same_estimates():
+    got = {pkg: _elastic_case(pkg) for pkg in ELASTIC}
+    assert got["torch"] == got["jax"]
+
+
+def test_an_unexpected_error_of_the_elastic_path_propagates():
+    stub = _Estimates("torch")
+    single = stub.decide(_elastic_arrival("torch", "probe",
+                                          1 << 40).request()).peak_bytes
+    cap = single * 9 // 10
+    fleet = tsched.Fleet([tsched.Node(f"n{i}", cap) for i in range(4)])
+    s = tsched.FleetScheduler(stub, fleet)
+    assert s.place(_elastic_arrival("torch", "mesh", cap)).placed
+    stub.raise_on = "/shrink/baseline"
+    home = sorted(fleet.assignments["mesh"].shares)[0]
+    with pytest.raises(RuntimeError, match="unexpected"):
+        s.evacuate_node(home, "node.fail")
+    # the reference swallows the same error into a plain placement
+    jstub = _Estimates("jax")
+    jfleet = jsched.Fleet([jsched.Node(f"n{i}", cap) for i in range(4)])
+    js = jsched.FleetScheduler(jstub, jfleet)
+    assert js.place(_elastic_arrival("jax", "mesh", cap)).placed
+    jstub.raise_on = "/shrink/baseline"
+    jhome = sorted(jfleet.assignments["mesh"].shares)[0]
+    js.evacuate_node(jhome, "node.fail")

@@ -21,7 +21,12 @@ package's, on the CPU at smoke size.
 * The daemon's ``plan`` and ``serve_plan`` kinds in process and over the
   socket.
 * ``replan_mesh`` / ``reshard_batch_size`` equal the reference's.
-* Every mesh axis raises, naming slice 11 of the port.
+* The mesh axes (the topology grid, a fixed base topology, padded-vocab
+  variants) and a request's own shard factors or collectives: the JAX
+  planner fed the port's estimates (mesh-sweep rows included) gives the
+  port's offers; topology offers reproduce through
+  ``admission_request``; ``shrink_and_replan`` equals the reference's on
+  the same estimates.
 * The serving search costs exactly 1 + its distinct concurrencies
   traces, and its offers reproduce through ``decide_serving``.
 """
@@ -37,6 +42,7 @@ import pytest
 
 from repro.configs import get_smoke as jget_smoke
 from repro.configs.base import smoke_shape as jget_smoke_shape
+from repro.core import sweep as jsweep
 from repro.plan import cost as jcost
 from repro.plan import planner as jplanner
 from repro.service import admission as jadmission
@@ -47,6 +53,7 @@ from repro_torch.configs.base import smoke_shape
 from repro_torch.core.cache import TraceCache
 from repro_torch.core.estimator import XMemEstimator
 from repro_torch.core.orchestrator import ServingKnobs
+from repro_torch.core.sweep import MeshTopology
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import served
 from repro_torch.launch import train as ttrain
@@ -143,11 +150,17 @@ def test_serving_cost_equals_the_reference_under_v5e(v5e):
 
 # ---------------------------------------------------------------------------
 class _Recording:
-    """Wraps a port service: records every decision by job id."""
+    """Wraps a port service: records every decision by job id, and
+    every mesh sweep (its arguments and rows)."""
 
     def __init__(self, svc):
-        self.svc, self.by_id = svc, {}
+        self.svc, self.by_id, self.sweeps = svc, {}, []
         self.cache, self.obs = svc.cache, svc.obs
+
+    def mesh_sweep(self, *args, **kw):
+        res = self.svc.mesh_sweep(*args, **kw)
+        self.sweeps.append((args, kw, res))
+        return res
 
     def decide(self, req):
         d = self.svc.decide(req)
@@ -167,8 +180,9 @@ class _Table:
     candidate's peak, or a rejected one's unbounded peak (the reference
     replays unbounded and compares the peak with the capacity)."""
 
-    def __init__(self, answers):
+    def __init__(self, answers, rows=None):
         self.answers = answers
+        self.rows = rows or {}
         self.cache = types.SimpleNamespace(
             thread_stats=lambda: {"hits": 0, "misses": 0, "store_hits": 0})
         self.obs = None
@@ -188,21 +202,32 @@ class _Table:
     def decide_sweep(self, reqs):
         return [self._decision(r) for r in reqs]
 
+    def mesh_sweep(self, fwd, params, batch, topologies, *, cfg=None,
+                   **kw):
+        """The port's unbounded per-device peaks of the same rows."""
+        pad = cfg.pad_vocab_multiple if cfg is not None else None
+        reports = [types.SimpleNamespace(
+            peak_bytes=self.rows[(pad, t.label)], breakdown={})
+            for t in topologies]
+        return jsweep.MeshSweepResult(list(topologies), reports, {})
 
-def _port_search(svc, capacity, space=FULL_SPACE):
+
+def _port_search(svc, capacity, space=FULL_SPACE, **kw):
     cfg, policy, shape = _job()
     rec = _Recording(svc)
     res = RemediationPlanner(rec).plan(cfg, policy, shape,
                                        capacity=capacity, space=space,
-                                       job_id="misfit")
+                                       job_id="misfit", **kw)
     return res, rec
 
 
-def _reference_offers(svc, rec, capacity, space=FULL_SPACE):
+def _reference_offers(svc, rec, capacity, space=FULL_SPACE, jspace=None,
+                      **jkw):
     """The JAX planner over the port's estimates of the same
     candidates. Checks the two admission rules agree at ``capacity``
-    on every candidate: an admitted one replayed unbounded peaks where
-    it did at the capacity, a rejected one peaks above it."""
+    on every candidate, a mesh sweep's rows among them: an admitted one
+    replayed unbounded peaks where it did at the capacity, a rejected
+    one peaks above it."""
     answers = {}
     for job_id, (req, d) in rec.by_id.items():
         free = svc.decide(dataclasses.replace(req, capacity=1 << 62,
@@ -212,25 +237,39 @@ def _reference_offers(svc, rec, capacity, space=FULL_SPACE):
         else:
             assert free.peak_bytes > capacity, job_id
         answers[job_id] = (free.peak_bytes, free.breakdown)
-    jspace = jplanner.PlanSpace(
-        offload_opt_state=space.offload_opt_state,
-        offload_activations=space.offload_activations,
-        max_offers=space.max_offers)
+    rows = {}
+    for args, kw, res in rec.sweeps:
+        assert kw["capacity"] == capacity
+        free = svc.mesh_sweep(*args, **dict(kw, capacity=None))
+        for topo, at, un in zip(res.topologies, res.reports, free.reports):
+            if not at.oom and at.peak_bytes <= capacity:
+                assert un.peak_bytes == at.peak_bytes, topo.label
+            else:
+                assert un.peak_bytes > capacity, topo.label
+            rows[(kw["cfg"].pad_vocab_multiple, topo.label)] = un.peak_bytes
+    if jspace is None:
+        jspace = jplanner.PlanSpace(
+            offload_opt_state=space.offload_opt_state,
+            offload_activations=space.offload_activations,
+            max_offers=space.max_offers)
     jcfg = jget_smoke(ARCH)
     base = answers.setdefault("misfit/baseline", (capacity + 1, {}))
-    baseline = _Table(answers)._decision(types.SimpleNamespace(
+    table = _Table(answers, rows)
+    baseline = table._decision(types.SimpleNamespace(
         job_id="misfit/baseline", capacity=capacity))
     assert base[0] > capacity
-    return jplanner.RemediationPlanner(_Table(answers)).plan(
+    return jplanner.RemediationPlanner(table).plan(
         jcfg, JTrainPolicy(), jget_smoke_shape(SEQ, BATCH),
         capacity=capacity, space=jspace, job_id="misfit",
-        baseline=baseline)
+        baseline=baseline, **jkw)
 
 
 def _summary(offer):
     return (offer.knob, offer.global_batch, offer.microbatches, offer.remat,
             offer.offload_opt_state, offer.offload_activations,
-            offer.peak_bytes)
+            offer.peak_bytes, offer.pad_vocab_multiple,
+            offer.topology.label if offer.topology is not None else None,
+            offer.n_devices)
 
 
 def test_training_offers_equal_the_references(v5e):
@@ -558,27 +597,169 @@ def test_replan_mesh_and_reshard_equal_the_reference():
                                                                want)
 
 
-@pytest.mark.parametrize("space,kw", [
-    (PlanSpace(devices=(4, 8)), {}),
-    (PlanSpace(base_topology=object()), {}),
-    (PlanSpace(pad_vocab_multiple=16), {}),
-    (PlanSpace(), {"shard_factor_fn": lambda b: 2.0}),
-    (PlanSpace(), {"collective_specs": (object(),)}),
-])
-def test_mesh_axes_raise_naming_slice_11(space, kw):
+def _half(b):
+    """A per-device factor of 2 on every block (a pinned execution
+    model); both packages' planners pass it through untouched."""
+    return 2.0
+
+
+def _fixed_collective():
+    from repro_torch.core.events import Phase
+    from repro_torch.core.orchestrator import CollectiveSpec
+    return (CollectiveSpec("bucket", 1 << 16, Phase.FORWARD_BACKWARD),)
+
+
+# (port space, port kwargs, reference space, reference kwargs, the offer
+# knobs the port must produce)
+MESH_CASES = {
+    "devices": (PlanSpace(devices=(2, 4), remat=(), max_offers=64), {},
+                jplanner.PlanSpace(devices=(2, 4), remat=(), max_offers=64),
+                {}, {"topology", "batch", "microbatch"}),
+    "devices_pad_vocab": (
+        PlanSpace(devices=(2,), pad_vocab_multiple=96, batches=(),
+                  microbatches=(), remat=(), max_offers=64), {},
+        jplanner.PlanSpace(devices=(2,), pad_vocab_multiple=96, batches=(),
+                           microbatches=(), remat=(), max_offers=64), {},
+        {"topology", "pad_vocab"}),
+    "base_topology": (
+        PlanSpace(base_topology=MeshTopology(data=2, model=2), remat=(),
+                  max_offers=64), {},
+        jplanner.PlanSpace(base_topology=jsweep.MeshTopology(data=2,
+                                                             model=2),
+                           remat=(), max_offers=64), {},
+        {"batch", "microbatch"}),
+    "shard_factor_fn": (
+        PlanSpace(devices=(2,), remat=(), max_offers=64),
+        {"shard_factor_fn": _half},
+        jplanner.PlanSpace(devices=(2,), remat=(), max_offers=64),
+        {"shard_factor_fn": _half}, {"batch", "microbatch"}),
+    "collective_specs": (
+        PlanSpace(remat=(), max_offers=64),
+        {"collective_specs": _fixed_collective()},
+        jplanner.PlanSpace(remat=(), max_offers=64),
+        {"collective_specs": ("a pinned spec",)}, {"batch", "microbatch"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MESH_CASES))
+def test_mesh_axes_answer_as_the_reference(v5e, case):
+    """Each mesh axis, and a request's own execution model, answers: the
+    port's offers equal the JAX planner's over the same estimates, and
+    every offer reproduces through ``admission_request``."""
+    space, kw, jspace, jkw, knobs = MESH_CASES[case]
+    svc = _svc()
+    free, _ = _port_search(svc, 1 << 62, space, **kw)
+    cap = free.baseline.peak_bytes - free.baseline.peak_bytes // 50
+    res, rec = _port_search(svc, cap, space, **kw)
+    assert not res.baseline.admit
+    want = _reference_offers(svc, rec, cap, jspace=jspace, **jkw)
+    assert [_summary(o) for o in res.offers] \
+        == [_summary(o) for o in want.offers]
+    for got, ref in zip(res.offers, want.offers):
+        assert math.isclose(got.slowdown, ref.slowdown, rel_tol=1e-12)
+    assert res.stats["axes"] == want.stats["axes"]
+    assert (res.stats["candidates"], res.stats["feasible"]) \
+        == (want.stats["candidates"], want.stats["feasible"])
+    assert {o.knob for o in res.offers} == knobs
+    if "base_topology" in case:
+        assert all(o.topology == space.base_topology for o in res.offers)
     cfg, policy, shape = _job()
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        RemediationPlanner(_svc()).plan(cfg, policy, shape, capacity=1,
-                                        space=space, **kw)
+    for o in res.offers:
+        d = svc.decide(o.admission_request(cfg, policy, shape, **kw))
+        assert d.admit and d.peak_bytes == o.peak_bytes, o.to_json()
+    svc.close()
 
 
-def test_run_plan_search_default_mesh_raises_and_runs_without_it(capsys):
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        run_plan_search(ARCH, 1 << 20, seq=SEQ, batch=BATCH)
-    rec = run_plan_search(ARCH, 1 << 62, seq=SEQ, batch=BATCH, devices=(),
-                          service=_svc())
-    assert rec["admit"] and rec["counter_offers"] == []
-    assert "already fits" in capsys.readouterr().out
+def test_topology_offers_hold_their_mesh_sweep_rows_to_the_byte():
+    svc = _svc()
+    cfg, policy, shape = _job()
+    space = PlanSpace(devices=(2, 4), batches=(), microbatches=(),
+                      remat=(), max_offers=64)
+    free, _ = _port_search(svc, 1 << 62, space)
+    cap = free.baseline.peak_bytes - free.baseline.peak_bytes // 50
+    res, rec = _port_search(svc, cap, space)
+    ((args, kw, sweep),) = rec.sweeps
+    rows = {t.label: r for t, r in sweep}
+    assert res.offers and all(o.knob == "topology" for o in res.offers)
+    for o in res.offers:
+        row = rows[o.topology.label]
+        assert (o.peak_bytes, o.safe_threshold) == (row.peak_bytes,
+                                                    row.peak_bytes)
+        assert not row.oom and o.n_devices == o.topology.n_devices
+        assert o.to_json()["topology"] == o.topology.label
+    rejected = [t for t, r in sweep if r.oom or r.peak_bytes > cap]
+    assert len(res.offers) + len(rejected) == len(sweep)
+    # the topology axis replays the baseline's cached traces
+    assert res.stats["fresh_traces"] == 0
+    assert sweep.stats["trace_cache"]["misses"] == 0
+    svc.close()
+
+
+def test_run_plan_search_default_mesh_grid_answers(capsys):
+    svc = _svc()
+    free = run_plan_search(ARCH, 1 << 62, seq=SEQ, batch=BATCH, service=svc,
+                           verbose=False)
+    assert free["admit"] and free["counter_offers"] == []
+    cap = free["peak_bytes"] - free["peak_bytes"] // 50
+    rec = run_plan_search(ARCH, cap, seq=SEQ, batch=BATCH, service=svc)
+    assert not rec["admit"]
+    assert rec["stats"]["axes"]["topology"] == sum(
+        len(jsweep.topology_grid(n)) for n in (4, 8, 16))
+    offers = rec["counter_offers"]
+    assert any(o["topology"] is not None for o in offers)
+    out = capsys.readouterr().out
+    assert "rejected" in out and "topology" in out
+    svc.close()
+
+
+def test_shrink_and_replan_equals_the_reference_on_the_same_estimates(v5e):
+    """The re-carved mesh, the baseline on it, the applied offer and the
+    updated (cfg, policy, shape): the port's, and the JAX package's
+    over the port's estimates of the same requests."""
+    svc = _svc()
+    cfg, policy, shape = _job()
+    space = PlanSpace(remat=(), max_offers=64)
+    rec = _Recording(svc)
+    free = telastic.shrink_and_replan(
+        cfg, policy, shape, telastic.MeshPlan(1, 4, 2), 4, 1 << 62,
+        service=svc, space=space)
+    assert free.decision.admit and free.offer is None
+    cap = free.decision.peak_bytes - free.decision.peak_bytes // 50
+    got = telastic.shrink_and_replan(
+        cfg, policy, shape, telastic.MeshPlan(1, 4, 2), 4, cap,
+        service=rec, space=space)
+    assert (got.plan.pod, got.plan.data, got.plan.model) == (1, 2, 2)
+    assert got.topology == MeshTopology(data=2, model=2)
+    assert not got.decision.admit and got.offer is not None and got.admitted
+    answers = {}
+    for job_id, (req, d) in rec.by_id.items():
+        un = svc.decide(dataclasses.replace(req, capacity=1 << 62))
+        assert un.peak_bytes == d.peak_bytes if d.admit \
+            else un.peak_bytes > cap
+        answers[job_id] = (un.peak_bytes, un.breakdown)
+    want = jelastic.shrink_and_replan(
+        jget_smoke(ARCH), JTrainPolicy(), jget_smoke_shape(SEQ, BATCH),
+        jelastic.MeshPlan(1, 4, 2), 4, cap, service=_Table(answers),
+        space=jplanner.PlanSpace(remat=(), max_offers=64))
+    assert dataclasses.astuple(got.plan) == dataclasses.astuple(want.plan)
+    assert got.topology.label == want.topology.label
+    # the port's rejection replayed at the capacity; the reference's
+    # peak is the unbounded one it was given
+    assert got.decision.admit == want.decision.admit is False
+    assert want.decision.peak_bytes == answers["qwen3-smoke/shrink/baseline"][0]
+    assert _summary(got.offer) == _summary(want.offer)
+    assert (got.policy.microbatches, got.shape.global_batch, got.cfg.remat) \
+        == (want.policy.microbatches, want.shape.global_batch,
+            want.cfg.remat)
+    # the offer's request, decided again, holds its peak
+    d = svc.decide(got.offer.admission_request(cfg, policy, shape))
+    assert d.admit and d.peak_bytes == got.offer.peak_bytes
+    # a mesh whose model axis the devices left cannot hold refuses
+    with pytest.raises(ValueError):
+        telastic.shrink_and_replan(cfg, policy, shape,
+                                   telastic.MeshPlan(1, 1, 4), 2, cap,
+                                   service=svc)
+    svc.close()
 
 
 # ---------------------------------------------------------------------------

@@ -118,8 +118,8 @@ print("HAVE", sorted(n for n in sys.modules if n.startswith("repro_torch.")))
 """
 
 # the training, MoE, VLM/audio, baselines, sweep, admission-service,
-# planner and fleet-scheduler slices' modules, which the walk above must
-# have imported
+# planner, fleet-scheduler and sharding slices' modules, which the walk
+# above must have imported
 _TRAINING_MODULES = (
     "repro_torch.plan", "repro_torch.plan.cost", "repro_torch.plan.planner",
     "repro_torch.service", "repro_torch.service.admission",
@@ -141,7 +141,9 @@ _TRAINING_MODULES = (
     "repro_torch.core.baselines.schedtune",
     "repro_torch.core.baselines.directprobe",
     "repro_torch.sched", "repro_torch.sched.fleet",
-    "repro_torch.sched.scheduler", "repro_torch.sched.simulator")
+    "repro_torch.sched.scheduler", "repro_torch.sched.simulator",
+    "repro_torch.distributed", "repro_torch.distributed.sharding",
+    "repro_torch.distributed.act_sharding", "repro_torch.launch.mesh")
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():

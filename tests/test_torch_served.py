@@ -9,9 +9,10 @@
 * ``place`` and ``evacuate`` (with ``restore``) answer the reference
   daemon's shape, directly and over the socket on the server's fleet;
   a fleet on the CPU without a capacity is a structured error.
-* A ``plan`` request's mesh axis answers a structured error naming its
-  slice; a ``train`` request's ``offload`` object answers with
-  per-space peaks, a malformed one with a structured error.
+* A ``plan`` request's mesh axes (``devices``, ``pad_vocab_multiple``)
+  answer with the planner's topology and padded-vocab offers, equal to
+  an in-process search; a ``train`` request's ``offload`` object answers
+  with per-space peaks, a malformed one with a structured error.
 * ``--once`` reads one request from stdin; ``serve_mix_main`` exits 0
   when the mix fits and 2 when it does not.
 """
@@ -98,15 +99,39 @@ def test_serve_answer_is_the_serving_gate():
     svc.close()
 
 
-@pytest.mark.parametrize("kind,slice_no", [("plan", 11)])
-def test_kinds_of_later_slices_answer_a_structured_error(kind, slice_no):
-    svc = _svc()
-    # a plan request answers; its mesh axis is slice 11's
-    resp = served.handle_request(svc, dict(TRAIN, kind=kind, devices=[4]),
-                                 device="cpu")
-    assert resp["ok"] is False and resp["kind"] == "error"
-    assert f"slice {slice_no}" in resp["error"]
-    assert "NotImplementedError" in resp["error"]
+def test_plan_request_answers_its_mesh_axes():
+    import functools
+
+    from repro_torch.core.estimator import XMemEstimator
+    from repro_torch.plan import RemediationPlanner
+
+    def svc_():
+        # without the cuBLAS workspaces, which are most of a smoke
+        # job's peak and would hide the per-device shares
+        return _svc(estimator_factory=functools.partial(
+            XMemEstimator.for_torch_gpu, cublas_workspace=0))
+    svc = svc_()
+    job = dict(TRAIN, kind="plan", seq=48, batch=32)
+    free = served.handle_request(svc, job, device="cpu")
+    assert free["ok"] and free["admit"]
+    cap = free["peak_bytes"] - free["peak_bytes"] // 50
+    req = dict(job, hbm_gib=cap / 2**30, devices=[2, 4],
+               pad_vocab_multiple=96, batch_grid=[16], microbatch_grid=[],
+               remat_grid=[], max_offers=64)
+    resp = json.loads(json.dumps(served.handle_request(svc, req,
+                                                       device="cpu")))
+    assert resp["ok"] and not resp["admit"]
+    knobs = {o["knob"] for o in resp["counter_offers"]}
+    assert {"topology", "pad_vocab"} <= knobs
+    assert resp["stats"]["axes"]["topology"] == 3 + 5     # 2 and 4 devices
+    assert all(o["topology"] is not None for o in resp["counter_offers"]
+               if o["knob"] in ("topology", "pad_vocab"))
+    cfg, policy, shape = served._train_job(req)
+    want = RemediationPlanner(svc_()).plan(
+        cfg, policy, shape, capacity=served.request_capacity(req, "cpu"),
+        space=served.build_plan_space(req), job_id="qwen3-32b-plan")
+    assert resp["counter_offers"] == json.loads(json.dumps(
+        [o.to_json() for o in want.offers]))
     svc.close()
 
 

@@ -14,8 +14,12 @@ JAX package's scoring.
   ``estimate_request_stream`` at the same knobs.
 * ``ClusterSimulator``'s ``score`` is bit-identical to the reference's
   over the same ``RunRecord``s.
-* What waits for later slices raises ``NotImplementedError`` naming it;
-  what slice 10 ported (offload requests, counter-offers) answers.
+* Sharded requests (shard factors, collective specs) answer on every
+  rung: the exact rung and the batched sweep equal the direct
+  estimator's per-device estimate, a faulted one degrades; a sharded
+  serving decision equals ``estimate_serving``'s; ``mesh_sweep`` equals
+  the sweep service's; offload requests and plan contexts (with the
+  topology axis) answer.
 """
 import dataclasses
 
@@ -253,31 +257,124 @@ def test_cluster_score_is_bit_identical_to_the_reference():
     assert tcluster.score(trecs) == jcluster.score(jrecs)
 
 
-def test_what_waits_for_later_slices_raises():
+def _mesh_kw(mesh, policy):
+    from repro_torch.distributed.sharding import (mesh_collective_specs,
+                                                  shard_factor_fn)
+    fwd, upd, init = jobs.make_hooks()
+    params, data = jobs.shapes()
+    return {"shard_factor_fn": shard_factor_fn(
+                None, mesh, policy, params=params, batch=data,
+                opt_state=init(params)),
+            "collective_specs": mesh_collective_specs(mesh, policy)}
+
+
+def test_sharded_requests_answer_on_every_rung():
+    from repro_torch.distributed.sharding import ShardingPolicy
+    svc = AdmissionService(workers=1, cache=TraceCache())
+    kw = _mesh_kw({"data": 4, "model": 2},
+                  ShardingPolicy(fsdp=True, batch_axes=("data",)))
+    sharded = svc.decide(jobs.request("sharded", **kw))
+    plain = svc.decide(jobs.request("plain"))
+    fwd, upd, init = jobs.make_hooks()
+    params, data = jobs.shapes()
+    _same(sharded, XMemEstimator.for_torch_gpu().estimate_training(
+        fwd, params, data, update_fn=upd, opt_init_fn=init,
+        capacity=1 << 30, **kw))
+    assert sharded.admit and sharded.rung == "exact"
+    assert sharded.persistent_bytes < plain.persistent_bytes
+    assert sharded.peak_tensor_bytes < plain.peak_tensor_bytes
+    # the batched sweep estimates sharded points in this process
+    swept = svc.decide_sweep([jobs.request(f"s{b}", batch=b, **kw)
+                              for b in (8, 4)])
+    again = svc.decide(jobs.request("s8", batch=8, **kw))
+    for f in FIELDS:
+        assert getattr(swept[0], f) == getattr(again, f), f
+    # a faulted exact rung degrades to a lower rung, as any request does
+    with svc.inject_faults(plan_raising_at("replay")):
+        d = svc.decide(jobs.request("hurt", **kw))
+    assert d.degraded and d.rung != "exact"
+    svc.close()
+
+
+def test_sharded_serving_decision_equals_the_estimator():
+    from repro_torch.distributed.sharding import (ShardingPolicy,
+                                                  shard_factor_fn)
+    cfg = treg.get_smoke("qwen3-32b")
+    b, max_len = 4, 64
+    params = TM.abstract_params(cfg)
+    cache = TM.init_cache(cfg, b, max_len, device="meta")
+    step = tserve.make_decode_fn(cfg)
+    batch = tserve.decode_input(cfg, b)
+    factor = shard_factor_fn(cfg, {"data": 2, "model": 2},
+                             ShardingPolicy(batch_axes=("data",)),
+                             params=params, cache=cache)
+    svc = AdmissionService(workers=1, cache=TraceCache())
+    d = svc.decide_serving("sharded-serve", step, params, cache, batch,
+                           capacity=1 << 30, shard_factor_fn=factor)
+    want = XMemEstimator.for_torch_gpu().estimate_serving(
+        step, params, cache, batch, shard_factor_fn=factor,
+        capacity=1 << 30)
+    _same(d, want)
+    plain = svc.decide_serving("serve", step, params, cache, batch,
+                               capacity=1 << 30)
+    assert d.persistent_bytes < plain.persistent_bytes
+    # request-driven: the step's blocks are one device's share
+    mix = tserve.parse_mix("48:16:4")
+    kv, _ = tserve.serving_cache_profile(cfg, max_len)
+    rd = svc.decide_serving("sharded-mix", step, params, cache, batch,
+                            capacity=1 << 30, shard_factor_fn=factor,
+                            mix=mix, kv_bytes_per_token=kv)
+    se = XMemEstimator.for_torch_gpu().estimate_request_stream(
+        step, params, cache, batch, stream=mix.stream(),
+        knobs=ServingKnobs(), kv_bytes_per_token=kv,
+        shard_factor_fn=factor, capacity=1 << 30)
+    assert rd.peak_bytes == se.worst_case_peak_bytes
+    assert rd.persistent_bytes == se.persistent_bytes
+    svc.close()
+
+
+def test_mesh_sweep_equals_the_sweep_services():
+    from repro_torch.core.sweep import SweepService, topology_grid
+    svc = AdmissionService(workers=1, cache=TraceCache())
+    fwd, upd, init = jobs.make_hooks()
+    params, data = jobs.shapes()
+    grid = topology_grid(2) + topology_grid(4)
+    n0 = svc.requests_served
+    res = svc.mesh_sweep(fwd, params, data, grid, update_fn=upd,
+                         opt_init_fn=init, capacity=1 << 30)
+    assert svc.requests_served == n0 + len(grid)
+    want = SweepService(XMemEstimator.for_torch_gpu(
+        trace_cache=TraceCache())).estimate_mesh_sweep(
+        fwd, params, data, grid, update_fn=upd, opt_init_fn=init,
+        capacity=1 << 30)
+    for t, got, ref in zip(res.topologies, res.reports, want.reports):
+        assert (got.peak_bytes, got.peak_tensor_bytes,
+                got.persistent_bytes, got.oom, got.breakdown) == \
+            (ref.peak_bytes, ref.peak_tensor_bytes, ref.persistent_bytes,
+             ref.oom, ref.breakdown), t.label
+    assert res.stats["trace_cache"]["misses"] == 3
+    svc.close()
+
+
+def test_offload_requests_and_plan_contexts_answer():
     from repro_torch.core.orchestrator import OffloadPlan
     from repro_torch.plan import PlanContext, PlanSpace
     svc = AdmissionService(workers=1, cache=TraceCache())
-    # host offload is ported: the device peak is the verdict
+    # host offload: the device peak is the verdict
     off = svc.decide(jobs.request("offload", offload=OffloadPlan(
         optimizer_state=True, min_block_bytes=0)))
     assert off.admit and "space_peaks" in off.breakdown
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        svc.decide(jobs.request("sharded", shard_factor_fn=lambda b: 2.0))
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        svc.mesh_sweep(None, None, None, ())
-    # a rejection with a plan context gets counter-offers; the planner's
-    # mesh axes wait for slice 11
+    # a rejection with a plan context gets counter-offers; the topology
+    # axis is searched too (none fits one byte)
     cfg = treg.get_smoke("qwen3-32b")
     plan = PlanContext(cfg, TrainPolicy(), smoke_shape(SEQ, 4),
                        space=PlanSpace(devices=(4,)))
     req = ttrain.train_request(cfg, TrainPolicy(), smoke_shape(SEQ, 4), 1)
     req.meta["plan"] = plan
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        svc.decide(req)
-    req.meta["plan"] = dataclasses.replace(plan, space=PlanSpace())
     d = svc.decide(req)
     assert not d.admit and d.counter_offers == []
-    assert d.provenance["plan"]["candidates"] > 0
+    stats = d.provenance["plan"]
+    assert stats["axes"]["topology"] == 5 and stats["candidates"] > 5
     assert svc.decide(jobs.request("admit", meta={"plan": plan})).admit
     with pytest.raises(ValueError, match="capacity"):
         svc.decide(jobs.request("nocap", capacity=None))
