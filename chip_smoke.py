@@ -11,6 +11,17 @@ non-zero:
    the CPU (no CUDA call) while this process uses the card, on the
    other half of the CPU cores (``cpus``), then waits for its turn on
    the card;
+0a. depth_compose — in a process of its own beside them, from the start
+   (``--depth-compose OUT``, no card): the vlm and audio training
+   estimates (24 and 16 layers) from traces composed of probes at 2, 3
+   and 4 layers (``core/depth.py``) beside the estimates from the full
+   traces, equal to the byte, each with its wall and CPU seconds; then
+   qwen3-32b (64 layers, batch 8), musicgen-medium (48, batch 32) and
+   phi3.5-moe (32, batch 8) at their published depths: estimate,
+   source, seconds, and admit or reject at the serving capacity; its
+   line is printed when the training jobs end. Every estimate below
+   whose step is deeper than its probes (9 units) comes from a
+   composed trace, to the byte the full trace's;
 1. device  — the card (``nvidia-smi`` name and power limit), torch/CUDA;
 2. build   — every kernel under ``src/repro_torch/csrc`` with nvcc;
 3. kernels — each kernel against its plain PyTorch version on the card
@@ -208,9 +219,10 @@ HYBRID_PERIOD = 2
 # xlstm-1.3b serving depth, in whole periods of 8: one prefill estimate
 # at 48 layers took 58.0 and 81.6 s of the chip machine's CPU at seq 2048
 # in two runs (PERF.md section 4), over the 60 s allowed in the second;
-# 16 layers (24 until the fleet phase came: its serving path took 127
-# and 175 s of the run on two machines) keeps the whole run inside its
-# limit
+# its 6 periods are fewer than the 9 a composed trace's probes take, so
+# it is still traced in full (core/depth.py). 16 layers (24 until the
+# fleet phase came: its serving path took 127 and 175 s of the run on
+# two machines) keeps the whole run inside its limit
 SSM_SERVING_LAYERS = 16
 # serving paths: arch -> (B, H, Hkv, S, d) of its prefill attention, and
 # the kernels held against the plain version at that shape
@@ -239,14 +251,17 @@ PLAIN_BATCH = 8
 # the CPU gate CLI so that its first candidate is rejected (phi3.5-moe's
 # admits its first) and the second admitted. phi3.5-moe at 4 layers fits
 # only with 0.27 GB to spare, and its gate rejects every batch 0.5 GB
-# lower. One musicgen estimate at 48 layers takes about 180 s of CPU
-# (PERF.md section 4), over the 60 s allowed, so it trains 16: at 24 its
-# turn (272-281 s) left the run no room for the fleet phase (1,185.6 s
-# with it; PERF.md section 5), and at 16 the CPU gate CLI still rejects
-# 64 (batch 64 at 2 microbatches: 50,992.0 MiB) and admits 32. xLSTM's
-# least depth, one period of 8, already takes about 250 s (its sLSTM's
-# 4096 steps, three times forward and once backward under the trace);
-# its gate starts at 16, which it admitted after rejecting 32 (PERF.md)
+# lower. One musicgen estimate at 48 layers took 177.59 s of CPU in full
+# and 47.97 s composed from probes of 2, 3 and 4 layers (PERF.md section
+# 6); it trains 16 all the same: its turn is bound by its 3 steps
+# on the card (about 56 s each at 24 layers), at 24 its turn (272-281 s)
+# left the run no room for the fleet phase (1,185.6 s with it; PERF.md
+# section 5), and at 16 the CPU gate CLI still rejects 64 (batch 64 at 2
+# microbatches: 50,992.0 MiB) and admits 32. xLSTM's least depth, one
+# period of 8, already takes about 250 s (its sLSTM's 4096 steps, three
+# times forward and once backward under the trace; one period is too few
+# to compose); its gate starts at 16, which it admitted after rejecting
+# 32 (PERF.md)
 TRAIN_JOBS = {"dense": ("qwen3-32b", 4, (8, 4, 2, 1)),
               "dense_sgd": ("qwen3-32b", 4, (8, 4, 2, 1)),
               "moe": (MOE_ARCH, 3, (8, 4, 2, 1)),
@@ -254,6 +269,15 @@ TRAIN_JOBS = {"dense": ("qwen3-32b", 4, (8, 4, 2, 1)),
               "audio": (AUDIO_ARCH, 16, (64, 32, 16, 8, 4, 2, 1)),
               "ssm": (SSM_ARCH, 8, (16, 8, 4, 2, 1)),
               "hybrid": (HYBRID_ARCH, HYBRID_PERIOD, (1,))}
+# ``depth_compose`` (a process of its own, ``--depth-compose OUT``): the
+# training jobs the card runs deep enough for a composed trace, each at
+# its gate's admitted batch (internvl2-1b rejects 16 and admits 8,
+# musicgen-medium at 16 layers rejects 64 and admits 32), estimated from
+# the composed trace and from the full one, to the byte; and published
+# depths no job runs: arch -> (the job whose policy it takes, batch)
+DEPTH_FULL_JOBS = {"vlm": 8, "audio": 32}
+DEPTH_PUBLISHED = {"qwen3-32b": ("dense", 8), AUDIO_ARCH: ("audio", 32),
+                   MOE_ARCH: ("moe", 8)}
 # each job's optimizer (default AdamW): dense_sgd is the paper's
 # optimizer axis, on which DNNMem's estimate cannot move
 OPTIMIZERS = {"dense_sgd": "sgd"}
@@ -2301,6 +2325,99 @@ def phase_plan_offers(cfg, policy, service, capacity: int, gate: dict,
         raise AssertionError(f"plan_offers: {violations}")
 
 
+def phase_depth_compose(out_path: str) -> None:
+    """Depth composition at full width, in a process of its own that
+    uses no card: for each job of ``DEPTH_FULL_JOBS``, the estimate from
+    its composed trace (``core/depth.py``: probes of 2, 3 and 4 units)
+    beside the estimate from the full trace, each with its wall and CPU
+    seconds; then each config of ``DEPTH_PUBLISHED`` at its published
+    depth: its estimate, source and seconds, and, once ``go CAPACITY``
+    arrives on stdin, the decision replayed at that capacity (the
+    parent's serving capacity; the traces from the cache): admit or
+    reject. Writes one JSON object to
+    ``out_path``; fails if any composed estimate differs from its full
+    one by a byte or any trace was not composed."""
+    from repro_torch.configs.base import smoke_shape
+    from repro_torch.configs.registry import input_specs
+    from repro_torch.core.estimator import XMemEstimator, trace_fwd_in_full
+    from repro_torch.models import model as M
+    from repro_torch.train import make_estimator_hooks
+
+    def timed(fn):
+        w0, c0 = time.perf_counter(), time.process_time()
+        out = fn()
+        return out, time.perf_counter() - w0, time.process_time() - c0
+
+    def job_args(arch, n_layers, job, batch):
+        cfg = path_config(arch, n_layers)
+        fwd, upd, init = make_estimator_hooks(cfg, train_policy(job))
+        return cfg, (fwd, M.abstract_params(cfg),
+                     input_specs(cfg, smoke_shape(TRAIN_SEQ, batch)),
+                     upd, init)
+
+    def row(rep) -> dict:
+        return {"estimate": rep.peak_bytes, "tensor": rep.peak_tensor_bytes,
+                "persistent": rep.persistent_bytes, "oom": rep.oom,
+                "depth": rep.depth}
+
+    full_rows, bad = [], []
+    for job, batch in DEPTH_FULL_JOBS.items():
+        arch, n_layers, _ = TRAIN_JOBS[job]
+        cfg, (fwd, params, specs, upd, init) = job_args(arch, n_layers, job,
+                                                       batch)
+        est = XMemEstimator.for_torch_gpu()
+        comp, comp_s, comp_cpu = timed(lambda: est.estimate_training(
+            fwd, params, specs, update_fn=upd, opt_init_fn=init))
+        ref = XMemEstimator.for_torch_gpu()
+        full, full_s, full_cpu = timed(lambda: ref.estimate_from_phases(
+            *ref.trace_phases(fwd, params, specs, upd, init,
+                              fwd=trace_fwd_in_full(fwd, params, specs))))
+        equal = all(getattr(comp, f) == getattr(full, f) for f in (
+            "peak_bytes", "peak_tensor_bytes", "persistent_bytes", "oom"))
+        full_rows.append({"job": job, "config": cfg.name,
+                          "n_layers": cfg.n_layers, "batch": batch,
+                          "composed": {**row(comp), "seconds": comp_s,
+                                       "cpu_s": comp_cpu},
+                          "full": {**row(full), "seconds": full_s,
+                                   "cpu_s": full_cpu},
+                          "equal_bytes": equal})
+        if not equal or comp.depth.get("source") != "composed":
+            bad.append(job)
+    ahead = {}
+    for arch, (job, batch) in DEPTH_PUBLISHED.items():
+        cfg, args = job_args(arch, None, job, batch)
+        fwd, params, specs, upd, init = args
+        est = XMemEstimator.for_torch_gpu()
+        rep, seconds, cpu_s = timed(lambda: est.estimate_training(
+            fwd, params, specs, update_fn=upd, opt_init_fn=init))
+        ahead[arch] = (cfg, job, batch, args, est, rep, seconds, cpu_s)
+    word, capacity = sys.stdin.readline().split()
+    if word != "go":
+        raise AssertionError("depth_compose: no capacity")
+    capacity = int(capacity)
+    published = []
+    for arch, (cfg, job, batch, args, est, rep, seconds, cpu_s) \
+            in ahead.items():
+        fwd, params, specs, upd, init = args
+        at, decide_s, _ = timed(lambda: est.estimate_training(
+            fwd, params, specs, update_fn=upd, opt_init_fn=init,
+            capacity=capacity))
+        published.append({
+            "config": cfg.name, "n_layers": cfg.n_layers, "job": job,
+            "batch": batch, "seq_len": TRAIN_SEQ, **row(rep),
+            "seconds": seconds, "cpu_s": cpu_s,
+            "admit": not at.oom and at.peak_bytes <= capacity,
+            "decide_seconds": decide_s})
+        if rep.depth.get("source") != "composed":
+            bad.append(arch)
+    Path(out_path).write_text(json.dumps({
+        "capacity": capacity, "against_full": full_rows,
+        "published": published}))
+    if bad:
+        raise AssertionError(f"depth_compose: {bad} not composed or not "
+                             f"equal to the full trace")
+
+
 def phase_serve_plan(out_path: str) -> None:
     """The serving remediation search, in a process of its own that
     uses no card: it waits for a line ``go CAPACITY`` (the main
@@ -2946,6 +3063,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--serve-plan"] and len(sys.argv) == 3:
         phase_serve_plan(sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--depth-compose"] and len(sys.argv) == 3:
+        phase_depth_compose(sys.argv[2])
+        return 0
     if sys.argv[1:2] == ["--colocate-worker"] and len(sys.argv) == 3:
         colocate_worker(sys.argv[2])
         return 0
@@ -2977,9 +3097,19 @@ def main() -> int:
     if mine:
         os.sched_setaffinity(serve_plan.pid, theirs)
 
+    # the depth composition at full width needs no card either: a process
+    # of its own beside the training jobs, from the start
+    depth_out = rows_dir / "depth_compose.json"
+    depth = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--depth-compose",
+         str(depth_out)], stdin=subprocess.PIPE, text=True)
+    if mine:
+        os.sched_setaffinity(depth.pid, theirs)
+
     def start_serve_plan(capacity: int) -> None:
-        serve_plan.stdin.write(f"go {capacity}\n")
-        serve_plan.stdin.close()
+        for child in (serve_plan, depth):
+            child.stdin.write(f"go {capacity}\n")
+            child.stdin.close()
     if mine:
         for tid in os.listdir("/proc/self/task"):
             os.sched_setaffinity(int(tid), mine)
@@ -3015,12 +3145,16 @@ def main() -> int:
             if child.wait(timeout=600) != 0:
                 raise AssertionError(f"training job {job} failed: exit "
                                      f"{child.returncode}")
+        if depth.wait(timeout=600) != 0:
+            raise AssertionError(f"depth_compose failed: exit "
+                                 f"{depth.returncode}")
+        emit("depth_compose", **json.loads(depth_out.read_text()))
         phase_comparison({job: json.loads((rows_dir / f"{job}.json")
                                           .read_text())
                           for job in TRAIN_JOBS if job not in GATE_ONLY},
                          info)
     finally:
-        for child in (*jobs.values(), serve_plan):
+        for child in (*jobs.values(), serve_plan, depth):
             if child.poll() is None:
                 child.kill()
                 child.wait()

@@ -63,6 +63,7 @@ from ..obs import spans as obs_spans
 from .allocator import AllocatorPolicy, CUDA_CACHING, CUDA_CACHING_TORCH
 from .analyzer import classify_blocks, phase_peaks, reconstruct_lifecycles
 from .cache import BlockInfo, TraceCache, TracedPhase, trace_key
+from .depth import compose, depth_plan
 from .events import (BlockKind, BlockLifecycle, MemorySpace, PeriodicBlocks,
                      Phase, peak_live_bytes, periodic_breakdown_peaks_fast,
                      reduced_for_breakdown)
@@ -126,6 +127,43 @@ def _to_meta(tree):
         if isinstance(t, torch.Tensor) else t, tree)
 
 
+def trace_entry(fn, args_with_kinds, phase, out_kind_fn=None,
+                grad: bool = False, labeller=None):
+    """Trace ``fn`` on the ``(tree, kind, name)`` arguments into a
+    ``TracedPhase``; returns it and the tracer."""
+    flat, kinds, scopes = flatten_kinds(args_with_kinds)
+    specs = [pytree.tree_structure(t) for t, _, _ in args_with_kinds]
+    counts = [spec.num_leaves for spec in specs]
+
+    def flat_fn(*leaves):
+        rebuilt, i = [], 0
+        for spec, n in zip(specs, counts):
+            rebuilt.append(pytree.tree_unflatten(leaves[i:i + n], spec))
+            i += n
+        return fn(*rebuilt)
+
+    trace, tr, out = trace_fn(flat_fn, *flat, arg_kinds=kinds,
+                              arg_scopes=scopes, phase=phase, grad=grad,
+                              out_kind_fn=out_kind_fn, labeller=labeller)
+    entry = TracedPhase(
+        trace=trace, lifecycles=tuple(tr.lifecycles()),
+        input_blocks=tuple(BlockInfo(b.bid, b.size, b.kind, b.shape)
+                           for b in tr.input_blocks),
+        output_blocks=tuple(BlockInfo(b.bid, b.size, b.kind, b.shape)
+                            for b in tr.output_blocks),
+        out_shape=_to_meta(out), arg_leaf_counts=tuple(counts))
+    return entry, tr
+
+
+def trace_fwd_in_full(fwd_bwd_fn, params, batch) -> TracedPhase:
+    """The forward+backward phase traced at its real depth, never
+    composed and never cached: what a composed phase must equal.
+    ``XMemEstimator.trace_phases(..., fwd=...)`` takes it."""
+    return trace_entry(fwd_bwd_fn, [(params, BlockKind.PARAM, "params"),
+                                    (batch, BlockKind.INPUT, "batch")],
+                       Phase.FORWARD_BACKWARD, _fwd_out_kinds, grad=True)[0]
+
+
 @dataclasses.dataclass
 class EstimateReport:
     peak_bytes: int               # reserved segments — THE estimate
@@ -141,6 +179,10 @@ class EstimateReport:
     # (``min_feasible_capacity`` reuses both)
     composition: Any = dataclasses.field(default=None, repr=False)
     sim_unbounded: bool = False
+    # how the stepped phase's trace was made (``depth.py``): ``source``
+    # "composed", "traced" or "fallback", the units, the units traced;
+    # ``probe_traces``: the probes this estimate traced (0 on a hit)
+    depth: dict = dataclasses.field(default_factory=dict)
 
     def fits(self, capacity: int) -> bool:
         return self.peak_bytes <= capacity
@@ -172,6 +214,8 @@ class XMemEstimator:
         # "tracer" after a trace-cache miss, just before the fake-tensor
         # trace, and with "replay" before the allocator replay
         self.checkpoint = checkpoint
+        # traces made at probe depths to compose deeper ones (depth.py)
+        self.probe_traces = 0
 
     @classmethod
     def for_torch_gpu(cls, **kw) -> "XMemEstimator":
@@ -229,7 +273,12 @@ class XMemEstimator:
     def _trace_phase(self, fn, args_with_kinds, phase,
                      out_kind_fn: Callable | None = None, tag: str = "",
                      grad: bool = False, cached: bool = True) -> TracedPhase:
-        flat, kinds, scopes = flatten_kinds(args_with_kinds)
+        """One phase's trace, from the cache or fresh. On the fast path a
+        step with a depth plan deep enough is composed from probe traces
+        (``depth.py``); the result is one trace all the same, cached and
+        stored under the real depth's key, and the probes are counted on
+        their own (``probe_traces``)."""
+        flat, kinds, _ = flatten_kinds(args_with_kinds)
         specs = [pytree.tree_structure(t) for t, _, _ in args_with_kinds]
         cache = self.trace_cache if cached else None
         key = None
@@ -240,26 +289,23 @@ class XMemEstimator:
                 return hit
         if self.checkpoint is not None:
             self.checkpoint("tracer")
-        counts = [spec.num_leaves for spec in specs]
-
-        def flat_fn(*leaves):
-            rebuilt, i = [], 0
-            for spec, n in zip(specs, counts):
-                rebuilt.append(pytree.tree_unflatten(leaves[i:i + n], spec))
-                i += n
-            return fn(*rebuilt)
-
+        plan = depth_plan(fn) if cached and self.fastpath else None
+        entry = None
         with obs_spans.span("estimator.trace", phase=str(phase), tag=tag):
-            trace, tr, out = trace_fn(flat_fn, *flat, arg_kinds=kinds,
-                                      arg_scopes=scopes, phase=phase,
-                                      grad=grad, out_kind_fn=out_kind_fn)
-        entry = TracedPhase(
-            trace=trace, lifecycles=tuple(tr.lifecycles()),
-            input_blocks=tuple(BlockInfo(b.bid, b.size, b.kind, b.shape)
-                               for b in tr.input_blocks),
-            output_blocks=tuple(BlockInfo(b.bid, b.size, b.kind, b.shape)
-                                for b in tr.output_blocks),
-            out_shape=_to_meta(out), arg_leaf_counts=tuple(counts))
+            if plan is not None and plan.composes:
+                entry, info = compose(
+                    plan, args_with_kinds,
+                    lambda f, awk, labeller: trace_entry(
+                        f, awk, phase, out_kind_fn, grad, labeller))
+                self.probe_traces += info["probes"]
+            if entry is None:
+                entry, _tr = trace_entry(fn, args_with_kinds, phase,
+                                         out_kind_fn, grad)
+                if plan is not None:
+                    entry.trace.meta["depth"] = (
+                        info if plan.composes
+                        else {"source": "traced", "units": plan.units,
+                              "units_traced": plan.units})
         if cache is not None:
             cache.put(fn, key, entry)
         return entry
@@ -409,15 +455,18 @@ class XMemEstimator:
             finally:
                 self.orchestrator.policy = policy_before
         cache = self.trace_cache
-        h0, m0 = cache.hits, cache.misses
+        h0, m0, p0 = cache.hits, cache.misses, self.probe_traces
         fwd, upd, init = self.trace_phases(fwd_bwd_fn, params, batch,
                                            update_fn, opt_init_fn)
         cache_stats = {"hits": cache.hits - h0, "misses": cache.misses - m0,
                        "global": cache.stats()}
-        return self.estimate_from_phases(
+        rep = self.estimate_from_phases(
             fwd, upd, init, shard_factor_fn=shard_factor_fn,
             collective_specs=collective_specs, capacity=capacity, t0=t0,
             cache_stats=cache_stats)
+        if rep.depth:
+            rep.depth["probe_traces"] = self.probe_traces - p0
+        return rep
 
     def trace_phases(self, fwd_bwd_fn, params, batch, update_fn=None,
                      opt_init_fn=None, fwd: TracedPhase | None = None
@@ -585,7 +634,8 @@ class XMemEstimator:
             num_events=num_events,
             cache_stats=cache_stats,
             composition=pb,
-            sim_unbounded=(capacity or self.capacity) >= (1 << 62))
+            sim_unbounded=(capacity or self.capacity) >= (1 << 62),
+            depth=dict(fwd.trace.meta.get("depth") or {}))
 
     # -- the frozen reference pipeline (fastpath=False) ----------------------
     def _compose_reference(self, fwd: TracedPhase, upd: TracedPhase | None,
@@ -791,6 +841,22 @@ class XMemEstimator:
                                engine=engine).min_feasible_capacity(
             comp, probe=probe)
 
+    def _serving_phase(self, step_fn, params, cache, batch
+                       ) -> tuple[TracedPhase, dict]:
+        """A serving step's phase (tag ``"serve"``) and its depth info,
+        with the probes this call traced."""
+        p0 = self.probe_traces
+        entry = self._trace_phase(
+            step_fn,
+            [(params, BlockKind.PARAM, "params"),
+             (cache, BlockKind.CACHE, "cache"),
+             (batch, BlockKind.INPUT, "batch")],
+            Phase.DECODE, tag="serve")
+        depth = dict(entry.trace.meta.get("depth") or {})
+        if depth:
+            depth["probe_traces"] = self.probe_traces - p0
+        return entry, depth
+
     def estimate_serving(self, step_fn: Callable, params, cache, batch,
                          shard_factor_fn=None,
                          collective_specs: Sequence[CollectiveSpec] = (),
@@ -803,12 +869,7 @@ class XMemEstimator:
         accepted and unused, as in the JAX package (a decode step has no
         phase bounds to stage collectives at)."""
         t0 = time.perf_counter()
-        entry = self._trace_phase(
-            step_fn,
-            [(params, BlockKind.PARAM, "params"),
-             (cache, BlockKind.CACHE, "cache"),
-             (batch, BlockKind.INPUT, "batch")],
-            Phase.DECODE, tag="serve")
+        entry, depth = self._serving_phase(step_fn, params, cache, batch)
         blocks = list(entry.lifecycles)
         blocks = self.orchestrator.mark_persistent(
             blocks, kinds=(BlockKind.PARAM, BlockKind.CACHE))
@@ -835,7 +896,7 @@ class XMemEstimator:
                        "step_allocs": sum(b.op != "input" for b in blocks),
                        "persistent_by_kind": by_kind},
             wall_time_s=time.perf_counter() - t0,
-            num_events=len(entry.trace.events))
+            num_events=len(entry.trace.events), depth=depth)
 
     def estimate_request_stream(self, step_fn: Callable, params, cache,
                                 batch, *, stream, knobs=None,
@@ -885,12 +946,7 @@ class XMemEstimator:
         """
         t0 = time.perf_counter()
         knobs = knobs or ServingKnobs()
-        entry = self._trace_phase(
-            step_fn,
-            [(params, BlockKind.PARAM, "params"),
-             (cache, BlockKind.CACHE, "cache"),
-             (batch, BlockKind.INPUT, "batch")],
-            Phase.DECODE, tag="serve")
+        entry, depth = self._serving_phase(step_fn, params, cache, batch)
         blocks = list(entry.lifecycles)
         blocks = self.orchestrator.mark_persistent(
             blocks, kinds=(BlockKind.PARAM, BlockKind.CACHE))
@@ -948,7 +1004,8 @@ class XMemEstimator:
                 "knobs": rb.meta["knobs"],
             },
             wall_time_s=time.perf_counter() - t0,
-            num_events=len(entry.trace.events) + 2 * rb.num_blocks)
+            num_events=len(entry.trace.events) + 2 * rb.num_blocks,
+            depth=depth)
 
 
 def _leading_dim(tree) -> int:
@@ -983,6 +1040,7 @@ class ServingEstimate:
     breakdown: dict
     wall_time_s: float
     num_events: int
+    depth: dict = dataclasses.field(default_factory=dict)   # the step's
 
     def fits(self, capacity: int) -> bool:
         return self.worst_case_peak_bytes <= capacity

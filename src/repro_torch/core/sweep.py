@@ -544,6 +544,7 @@ def _report_to_dict(rep: EstimateReport) -> dict:
         "sim_stats": rep.sim.stats,
         "sim_segments": rep.sim.segments,
         "sim_unbounded": rep.sim_unbounded,
+        "depth": rep.depth,
     }
 
 
@@ -710,7 +711,7 @@ class SweepService:
             persistent_bytes=d["persistent_bytes"],
             oom=d["oom"], sim=sim, breakdown=d["breakdown"],
             wall_time_s=0.0, num_events=d["num_events"],
-            sim_unbounded=d["sim_unbounded"])
+            sim_unbounded=d["sim_unbounded"], depth=d["depth"])
 
     @staticmethod
     def _picklable_jobs(gpoints: list[SweepPoint]) -> bool:

@@ -144,6 +144,10 @@ class TorchMemoryTracer(TorchDispatchMode):
         self._finalizers: dict[int, weakref.finalize] = {}
         self._op = ""
         self._closed = False
+        # a depth probe's unit of each event (``core/depth.py``): called
+        # once an event, its values kept in ``labels``
+        self.labeller: Callable[[], int] | None = None
+        self.labels: list[int] = []
 
     @property
     def num_events(self) -> int:
@@ -159,6 +163,8 @@ class TorchMemoryTracer(TorchDispatchMode):
         self._ev_scope.append(self._scopes.intern(b.scope))
         self._ev_bkind.append(KIND_CODE[b.kind])
         self._ev_shape.append(self._shapes.intern(b.shape))
+        if self.labeller is not None:
+            self.labels.append(self.labeller())
         self.t += 1
 
     def _new_block(self, t: torch.Tensor, op: str, kind: BlockKind,
@@ -277,7 +283,8 @@ def trace_fn(fn: Callable, *args, arg_kinds: Sequence[BlockKind] | None = None,
              arg_scopes: Sequence[str] | None = None,
              phase: Phase = Phase.FORWARD_BACKWARD, iteration: int = 0,
              grad: bool = False,
-             out_kind_fn: Callable | None = None
+             out_kind_fn: Callable | None = None,
+             labeller: Callable[[], int] | None = None
              ) -> tuple[Trace, TorchMemoryTracer, object]:
     """Trace ``fn(*args)`` into a memory-event stream without running it.
 
@@ -287,11 +294,13 @@ def trace_fn(fn: Callable, *args, arg_kinds: Sequence[BlockKind] | None = None,
     ``estimator.flatten_kinds``). ``grad`` runs the step with grad mode
     on (a training step that calls ``torch.autograd.grad``); serving
     steps run under ``torch.no_grad()``. ``out_kind_fn(out)`` gives the
-    kinds of the output's tensor leaves. Returns ``(trace, tracer,
-    out)`` where ``out`` holds the step's outputs as fake tensors."""
+    kinds of the output's tensor leaves. ``labeller()`` labels each
+    event (``tracer.labels``). Returns ``(trace, tracer, out)`` where
+    ``out`` holds the step's outputs as fake tensors."""
     leaves, spec = pytree.tree_flatten(args)
     mode = FakeTensorMode()
     tr = TorchMemoryTracer(phase=phase, iteration=iteration)
+    tr.labeller = labeller
     with mode:
         fakes = [_fake_like(t) if isinstance(t, torch.Tensor) else t
                  for t in leaves]

@@ -62,7 +62,9 @@ from ..core.orchestrator import RequestMix, ServingKnobs
 from ..models import model as M
 from ..service import RUNGS, AdmissionService
 from ..train.data import to_device
-from ..train.train_step import make_prefill_step, make_serve_step
+from ..core.depth import with_depth_plan
+from ..train.train_step import (make_prefill_step, make_serve_step,
+                                serving_args_at)
 
 
 def decode_input(cfg, b: int) -> dict:
@@ -124,7 +126,7 @@ def make_prefill_fn(cfg):
 
     def prefill(params, cache, batch):
         return step(params, batch), cache
-    return prefill
+    return with_depth_plan(prefill, cfg, make_prefill_fn, serving_args_at)
 
 
 def serving_cache_profile(cfg, max_len: int,
@@ -180,10 +182,17 @@ _SOURCE_ORDER = ("traced", "disk", "memory", "degraded")
 def gate_provenance(*decisions) -> dict:
     """One gate candidate's ``source`` and ``rung`` from its decisions:
     the coldest source (``traced`` before ``disk`` before ``memory``)
-    and the lowest rung that answered any of them."""
+    and the lowest rung that answered any of them; and, where a step's
+    trace has a depth plan, how each was made (``depth``: composed or
+    traced, the units, the units traced)."""
     sources = [d.provenance["source"] for d in decisions]
-    return {"source": min(sources, key=_SOURCE_ORDER.index),
-            "rung": max((d.rung for d in decisions), key=RUNGS.index)}
+    out = {"source": min(sources, key=_SOURCE_ORDER.index),
+           "rung": max((d.rung for d in decisions), key=RUNGS.index)}
+    depths = [d.provenance["depth"] for d in decisions
+              if "depth" in d.provenance]
+    if depths:
+        out["depth"] = depths
+    return out
 
 
 def pick_batch(cfg, max_len: int, capacity: int | None = None,

@@ -318,10 +318,13 @@ def main(argv=None) -> int:
     batch, gate = pick_train_batch(cfg, policy, args.seq, capacity,
                                    candidates, service=service)
     for c in gate["candidates"]:
+        trace = "".join(f", trace {d['source']}: {d['units_traced']} of "
+                        f"{d['units']} units traced"
+                        for d in c.get("depth", ()))
         print(f"[xmem] batch {c['batch']}: estimate "
               f"{c['estimate'] / 2**20:.1f} MiB (tensors "
               f"{c['tensor'] / 2**20:.1f}{', out of memory' if c['oom'] else ''}"
-              f") -> {'ADMIT' if c['fits'] else 'REJECT'}")
+              f"{trace}) -> {'ADMIT' if c['fits'] else 'REJECT'}")
     print(f"[xmem] capacity {capacity / 2**20:.0f} MiB, gate "
           f"{gate['seconds']:.2f} s, trace cache "
           f"{gate['trace_cache']['hits']}h/{gate['trace_cache']['misses']}m")

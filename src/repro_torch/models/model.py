@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -105,6 +106,36 @@ def _periods(cfg: ModelConfig) -> tuple[int, int]:
     period = (cfg.xlstm.slstm_every if cfg.family == "ssm"
               else cfg.attention.attn_every)
     return cfg.n_layers // period, period
+
+
+def repeat_unit(cfg: ModelConfig) -> tuple[int, int, int]:
+    """``(units, layers in a unit, remainder layers)`` of the stack: the
+    repeating unit every loop over the layers steps by, and the one
+    definition ``core/depth.py`` composes traces by. A plain dense
+    stack repeats one layer; gemma3 ``global_every`` layers (the local
+    ones and their global one), with the remainder a suffix of local
+    layers (gemma3-4b: 34 = 5 x 6 + 4); alternating MoE one dense+MoE
+    pair; hybrid and SSM one period. Those three stack whole units
+    only, so their remainder layers have no weights and never run."""
+    if cfg.family in ("ssm", "hybrid"):
+        unit = _periods(cfg)[1]
+    elif _alternating(cfg):
+        unit = cfg.moe.every_n_layers
+    else:
+        unit = cfg.attention.global_every or 1
+    return cfg.n_layers // unit, unit, cfg.n_layers % unit
+
+
+#: the depth probes' unit marks (``core/depth.py``): while a probe
+#: traces in a thread, ``UNIT_MARKS.fn`` is a callable that thread runs
+#: before each repeating unit of a stack and once after its last unit
+UNIT_MARKS = threading.local()
+
+
+def _mark() -> None:
+    fn = getattr(UNIT_MARKS, "fn", None)
+    if fn is not None:
+        fn()
 
 
 def _build_params(cfg: ModelConfig, gen, device) -> dict:
@@ -279,9 +310,11 @@ def backbone(params, x, cfg: ModelConfig, positions=None):
             return h + s_out
         body = _remat(period_body, cfg)
         for p in range(n_periods):
+            _mark()
             x = body(x, [layer_params(layers["mlstm"], (p, j))
                          for j in range(period - 1)],
                      layer_params(layers["slstm"], p))
+        _mark()
         return rms_norm(x, params["final_norm"])
     if cfg.family == "hybrid":
         n_periods, period = _periods(cfg)
@@ -293,8 +326,10 @@ def backbone(params, x, cfg: ModelConfig, positions=None):
             return h
         body = _remat(period_body, cfg)
         for p in range(n_periods):
+            _mark()
             x = body(x, [layer_params(layers[f"pos{pos}"], p)
                          for pos in range(period)])
+        _mark()
         return rms_norm(x, params["final_norm"])
     if _alternating(cfg):
         def pair(h, dense_lp, moe_lp):
@@ -302,15 +337,24 @@ def backbone(params, x, cfg: ModelConfig, positions=None):
             return _decoder_layer(h, moe_lp, cfg, positions=positions)
         body = _remat(pair, cfg)
         for p in range(cfg.n_layers // cfg.moe.every_n_layers):
+            _mark()
             x = body(x, layer_params(layers["dense"], p),
                      layer_params(layers["moe"], p))
+        _mark()
         return rms_norm(x, params["final_norm"])
     flags = _global_flags(cfg)
     layer = _remat(_decoder_layer, cfg)
+    # a mark before each unit; with a remainder, the one before its
+    # first layer ends the units
+    _, unit, rem = repeat_unit(cfg)
     for i in range(cfg.n_layers):
+        if i % unit == 0:
+            _mark()
         x = layer(x, layer_params(layers, i), cfg,
                   is_global=None if flags is None else flags[i],
                   positions=positions)
+    if not rem:
+        _mark()
     return rms_norm(x, params["final_norm"])
 
 
@@ -420,6 +464,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             for name, (shape, dt) in shapes.items()}
 
 
+def abstract_cache_like(cfg: ModelConfig, cache: dict) -> dict:
+    """``init_cache``'s state for ``cfg`` on the ``meta`` device, at the
+    batch and context length of ``cache``."""
+    if cfg.family == "ssm":
+        batch, max_len = cache["slstm"].shape[2], 0
+    else:
+        batch, max_len = cache["k"].shape[-4], cache["k"].shape[-3]
+    return init_cache(cfg, batch, max_len, device="meta")
+
+
 def reset_cache(cache: dict) -> dict:
     """``cache`` back to ``init_cache``'s values, in place."""
     for name, t in cache.items():
@@ -457,13 +511,18 @@ def decode_step(params, cache: dict, batch: dict, cache_len: int,
         window = cfg.attention.sliding_window
         flags = _global_flags(cfg)
         moe_cfg = _decode_moe(cfg)
+        _, unit, rem = repeat_unit(cfg)
         for i, lp in enumerate(_decode_layers(params, cfg)):
+            if i % unit == 0:
+                _mark()
             a_out, _, _ = attention_decode_block(
                 rms_norm(x, lp["ln1"]), lp["attn"], cfg.attention,
                 cfg.n_heads, cfg.n_kv_heads, cfg.hd, cache["k"][i],
                 cache["v"][i], cache_len, window=window,
                 is_global=None if flags is None else flags[i])
             x = _ffn(x + a_out, lp, moe_cfg)
+        if not rem:
+            _mark()
     h = rms_norm(x, params["final_norm"])
     return logits_fn(params, h, cfg), cache
 
@@ -476,6 +535,7 @@ def _write(dst, src) -> None:
 def _decode_ssm(layers, cache, x, cfg: ModelConfig):
     n_periods, period = _periods(cfg)
     for p in range(n_periods):
+        _mark()
         for j in range(period - 1):
             state = tuple(cache[k][p, j] for k in ("mlstm_C", "mlstm_n",
                                                    "mlstm_m"))
@@ -488,6 +548,7 @@ def _decode_ssm(layers, cache, x, cfg: ModelConfig):
                                     cfg.n_heads, chunk=1, state=state)
         _write(state, new)
         x = x + s_out
+    _mark()
     return x
 
 
@@ -495,6 +556,7 @@ def _decode_hybrid(layers, cache, x, cache_len: int, cfg: ModelConfig):
     n_periods, period = _periods(cfg)
     moe_cfg = _decode_moe(cfg)
     for p in range(n_periods):
+        _mark()
         lp = layer_params(layers["pos0"], p)
         a_out, _, _ = attention_decode_block(
             rms_norm(x, lp["ln1"]), lp["attn"], cfg.attention, cfg.n_heads,
@@ -509,6 +571,7 @@ def _decode_hybrid(layers, cache, x, cache_len: int, cfg: ModelConfig):
                                                lp["mamba"], cfg.mamba)
             _write(state.values(), (new["h"], new["conv"]))
             x = _ffn(x + m_out, lp, moe_cfg)
+    _mark()
     return x
 
 

@@ -103,6 +103,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Sequence
 
 from ..core.cache import GLOBAL_TRACE_CACHE, TraceCache
+from ..core.depth import summary as depth_summary
 from ..core.estimator import EstimateReport, XMemEstimator
 from ..core.orchestrator import ServingKnobs
 from ..core.sweep import SweepPoint, SweepService
@@ -778,7 +779,7 @@ class AdmissionService:
                     breakdown={"num_blocks": se.breakdown["num_blocks"],
                                "serving": se.to_json()},
                     wall_time_s=se.wall_time_s,
-                    num_events=se.num_events)
+                    num_events=se.num_events, depth=se.depth)
             else:
                 rep = est.estimate_serving(decode_fn, params, cache_tree,
                                            batch,
@@ -853,6 +854,10 @@ class AdmissionService:
                   min_cap: int | None) -> AdmissionDecision:
         provenance.setdefault("rung", RUNG_EXACT)
         provenance.setdefault("margin", 1.0)
+        if rep.depth:
+            # how the step's trace was made: composed from probes at a
+            # few units, or traced in full (core/depth.py)
+            provenance.setdefault("depth", depth_summary(rep.depth))
         return AdmissionDecision(
             job_id=req.job_id,
             admit=not rep.oom and rep.peak_bytes <= req.capacity,

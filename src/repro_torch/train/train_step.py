@@ -9,6 +9,13 @@ in-place optimizer update. The xMem estimator consumes the same pieces
 to the real step, not to a model of it.
 
 Serving steps run under ``torch.no_grad()``.
+
+Every step the estimator traces (``make_fwd_bwd``, ``make_prefill_step``,
+``make_serve_step``) carries a ``core.depth.DepthPlan``: how to build it
+and its inputs at another depth, so a deep stack's trace is composed
+from a few units. The steps are plain closures over their config, so
+their trace keys are content digests (``core.cache.fn_identity``): equal
+configs give equal keys in every process.
 """
 from __future__ import annotations
 
@@ -20,8 +27,20 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..configs.base import ModelConfig
+from ..core.depth import with_depth_plan
 from ..models import model as M
 from .optimizer import Optimizer, clip_by_global_norm, get_optimizer
+
+
+def params_at(cfg: ModelConfig, trees: list) -> list:
+    """A step's ``(params, ...)`` arguments at ``cfg``'s depth."""
+    return [M.abstract_params(cfg), *trees[1:]]
+
+
+def serving_args_at(cfg: ModelConfig, trees: list) -> list:
+    """A serving step's ``(params, cache, batch)`` at ``cfg``'s depth."""
+    params, cache, batch = trees
+    return [M.abstract_params(cfg), M.abstract_cache_like(cfg, cache), batch]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,8 +73,11 @@ def make_fwd_bwd(cfg: ModelConfig, microbatches: int = 1) -> Callable:
                  p.grad if p.grad is not None else torch.zeros_like(p)
                  for g, p in zip(got, leaves)]
         return loss.detach(), pytree.tree_unflatten(grads, spec)
+
+    def at(c):
+        return make_fwd_bwd(c, microbatches)
     if microbatches <= 1:
-        return fwd_bwd
+        return with_depth_plan(fwd_bwd, cfg, at, params_at)
     n = microbatches
 
     def fwd_bwd_accum(params, batch):
@@ -74,7 +96,7 @@ def make_fwd_bwd(cfg: ModelConfig, microbatches: int = 1) -> Callable:
             a.div_(n)
         return loss_sum / n, acc
 
-    return fwd_bwd_accum
+    return with_depth_plan(fwd_bwd_accum, cfg, at, params_at)
 
 
 def _split_microbatches(batch: dict, n: int) -> list[dict]:
@@ -168,19 +190,24 @@ def make_estimator_hooks(cfg: ModelConfig, policy: TrainPolicy):
 
 # ---------------------------------------------------------------------------
 def make_prefill_step(cfg: ModelConfig) -> Callable:
-    """Forward over the full prompt -> last-position logits."""
-    @torch.no_grad()
+    """Forward over the full prompt -> last-position logits. Grad mode
+    is off inside the body, not through a decorator: a ``torch.no_grad``
+    instance in the closure would leave the step no content digest."""
     def prefill_step(params, batch):
-        x = M.embed_inputs(params, batch, cfg)
-        h = M.backbone(params, x, cfg,
-                       positions=torch.arange(x.shape[1], device=x.device))
-        return M.logits_fn(params, h[:, -1:], cfg)
-    return prefill_step
+        with torch.no_grad():
+            x = M.embed_inputs(params, batch, cfg)
+            h = M.backbone(params, x, cfg, positions=torch.arange(
+                x.shape[1], device=x.device))
+            return M.logits_fn(params, h[:, -1:], cfg)
+    return with_depth_plan(prefill_step, cfg, make_prefill_step, params_at)
 
 
 def make_serve_step(cfg: ModelConfig, cache_len: int) -> Callable:
-    """One-token decode against a cache of ``cache_len`` context."""
-    @torch.no_grad()
+    """One-token decode against a cache of ``cache_len`` context (grad
+    mode off inside the body, as in ``make_prefill_step``)."""
     def serve_step(params, cache, batch):
-        return M.decode_step(params, cache, batch, cache_len, cfg)
-    return serve_step
+        with torch.no_grad():
+            return M.decode_step(params, cache, batch, cache_len, cfg)
+    return with_depth_plan(serve_step, cfg,
+                           lambda c: make_serve_step(c, cache_len),
+                           serving_args_at)
