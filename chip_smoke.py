@@ -14,14 +14,19 @@ non-zero:
 0a. depth_compose — in a process of its own beside them, from the start
    (``--depth-compose OUT``, no card): the vlm and audio training
    estimates (24 and 16 layers) from traces composed of probes at 2, 3
-   and 4 layers (``core/depth.py``) beside the estimates from the full
-   traces, equal to the byte, each with its wall and CPU seconds; then
-   qwen3-32b (64 layers, batch 8), musicgen-medium (48, batch 32) and
-   phi3.5-moe (32, batch 8) at their published depths: estimate,
-   source, seconds, and admit or reject at the serving capacity; its
-   line is printed when the training jobs end. Every estimate below
-   whose step is deeper than its probes (9 units) comes from a
-   composed trace, to the byte the full trace's;
+   and 4 layers (``core/depth.py``), and the ssm one (8 layers) from a
+   trace whose sLSTM step loops ran 6 and 7 steps in its probes
+   (``core/loops.py``), beside the estimates from the full traces,
+   equal to the byte, each with its wall and CPU seconds split between
+   the trace and the replay; then qwen3-32b (64 layers, batch 8),
+   musicgen-medium (48, batch 32), phi3.5-moe (32, batch 8) and
+   xlstm-1.3b (48, batch 16) at their published depths: estimate,
+   source, seconds, and admit or reject at the serving capacity, and
+   xlstm-1.3b's prefill at 48 layers (batch 256); its line is printed
+   when the training jobs end. Every estimate below whose step is
+   deeper than its probes (9 units), or has long step loops (the
+   sLSTM's, Mamba's), comes from a composed trace, to the byte the full
+   trace's;
 1. device  — the card (``nvidia-smi`` name and power limit), torch/CUDA;
 2. build   — every kernel under ``src/repro_torch/csrc`` with nvcc;
 3. kernels — each kernel against its plain PyTorch version on the card
@@ -190,6 +195,7 @@ import collections
 import dataclasses
 import json
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -216,14 +222,13 @@ HYBRID_ARCH = "jamba-1.5-large-398b"
 # over the card's 85 GB: the card serves a period of attn_every=2, one
 # attention layer (dense MLP) and one Mamba layer (MoE), at full width
 HYBRID_PERIOD = 2
-# xlstm-1.3b serving depth, in whole periods of 8: one prefill estimate
-# at 48 layers took 58.0 and 81.6 s of the chip machine's CPU at seq 2048
-# in two runs (PERF.md section 4), over the 60 s allowed in the second;
-# its 6 periods are fewer than the 9 a composed trace's probes take, so
-# it is still traced in full (core/depth.py). 16 layers (24 until the
-# fleet phase came: its serving path took 127 and 175 s of the run on
-# two machines) keeps the whole run inside its limit
-SSM_SERVING_LAYERS = 16
+# xlstm-1.3b serving depth, in whole periods of 8. Traced in full, one
+# prefill estimate at 48 layers took 58.0 and 81.6 s of the chip
+# machine's CPU at seq 2048; with its step loops composed
+# (core/loops.py) about 21 s, but at 48 layers the path took 190-205 s
+# of the run, which ended at 1,096 and 1,176 s (PERF.md section 6): 32
+# keeps the run under 1,150 s
+SSM_SERVING_LAYERS = 32
 # serving paths: arch -> (B, H, Hkv, S, d) of its prefill attention, and
 # the kernels held against the plain version at that shape
 SERVING_SHAPES = {"qwen3-32b": ((8, 64, 8, PROMPT_LEN, 128), ("sm90", "simt")),
@@ -257,11 +262,12 @@ PLAIN_BATCH = 8
 # on the card (about 56 s each at 24 layers), at 24 its turn (272-281 s)
 # left the run no room for the fleet phase (1,185.6 s with it; PERF.md
 # section 5), and at 16 the CPU gate CLI still rejects 64 (batch 64 at 2
-# microbatches: 50,992.0 MiB) and admits 32. xLSTM's least depth, one
-# period of 8, already takes about 250 s (its sLSTM's 4096 steps, three
-# times forward and once backward under the trace; one period is too few
-# to compose); its gate starts at 16, which it admitted after rejecting
-# 32 (PERF.md)
+# microbatches: 50,992.0 MiB) and admits 32. xLSTM trains its least
+# depth, one period of 8 (too few to compose by depth): traced in full,
+# one estimate took about 250 s beside the other children (its sLSTM's
+# 4096 steps, three times forward and once backward under the trace);
+# its step loops compose now (core/loops.py, PERF.md section 6); its
+# gate starts at 16, which it admitted after rejecting 32 (PERF.md)
 TRAIN_JOBS = {"dense": ("qwen3-32b", 4, (8, 4, 2, 1)),
               "dense_sgd": ("qwen3-32b", 4, (8, 4, 2, 1)),
               "moe": (MOE_ARCH, 3, (8, 4, 2, 1)),
@@ -270,14 +276,23 @@ TRAIN_JOBS = {"dense": ("qwen3-32b", 4, (8, 4, 2, 1)),
               "ssm": (SSM_ARCH, 8, (16, 8, 4, 2, 1)),
               "hybrid": (HYBRID_ARCH, HYBRID_PERIOD, (1,))}
 # ``depth_compose`` (a process of its own, ``--depth-compose OUT``): the
-# training jobs the card runs deep enough for a composed trace, each at
-# its gate's admitted batch (internvl2-1b rejects 16 and admits 8,
-# musicgen-medium at 16 layers rejects 64 and admits 32), estimated from
-# the composed trace and from the full one, to the byte; and published
-# depths no job runs: arch -> (the job whose policy it takes, batch)
-DEPTH_FULL_JOBS = {"vlm": 8, "audio": 32}
+# training jobs the card runs that compose, each at its gate's admitted
+# batch (internvl2-1b rejects 16 and admits 8, musicgen-medium at 16
+# layers rejects 64 and admits 32: deeper than the depth probes;
+# xlstm-1.3b at 8 layers rejects 32 and admits 16: its sLSTM's step
+# loops), estimated from the composed trace and from the full one, to
+# the byte; and published depths no job runs: arch -> (the job whose
+# policy it takes, batch), with xlstm-1.3b's 48 layers, whose 6 periods
+# are too few to compose by depth but whose step loops compose, and its
+# prefill there: (batch, prompt positions), into a MAX_LEN cache
+DEPTH_FULL_JOBS = {"vlm": 8, "audio": 32, "ssm": 16}
 DEPTH_PUBLISHED = {"qwen3-32b": ("dense", 8), AUDIO_ARCH: ("audio", 32),
-                   MOE_ARCH: ("moe", 8)}
+                   MOE_ARCH: ("moe", 8), SSM_ARCH: ("ssm", 16)}
+LOOPS_PREFILL = (256, 2048)
+# the xlstm-1.3b rows, the longest (one estimate at 48 layers is about 7
+# minutes of the child's CPU), run in a process of the child's own
+# (``--depth-compose-loops OUT``), beside the others
+LOOP_ARCHS = (SSM_ARCH,)
 # each job's optimizer (default AdamW): dense_sgd is the paper's
 # optimizer axis, on which DNNMem's estimate cannot move
 OPTIMIZERS = {"dense_sgd": "sgd"}
@@ -2325,21 +2340,29 @@ def phase_plan_offers(cfg, policy, service, capacity: int, gate: dict,
         raise AssertionError(f"plan_offers: {violations}")
 
 
-def phase_depth_compose(out_path: str) -> None:
-    """Depth composition at full width, in a process of its own that
-    uses no card: for each job of ``DEPTH_FULL_JOBS``, the estimate from
-    its composed trace (``core/depth.py``: probes of 2, 3 and 4 units)
-    beside the estimate from the full trace, each with its wall and CPU
-    seconds; then each config of ``DEPTH_PUBLISHED`` at its published
-    depth: its estimate, source and seconds, and, once ``go CAPACITY``
-    arrives on stdin, the decision replayed at that capacity (the
-    parent's serving capacity; the traces from the cache): admit or
-    reject. Writes one JSON object to
-    ``out_path``; fails if any composed estimate differs from its full
-    one by a byte or any trace was not composed."""
+def phase_depth_compose(out_path: str, loops: bool = False) -> None:
+    """Depth and step-loop composition at full width, in a process of
+    its own that uses no card: for each job of ``DEPTH_FULL_JOBS``, the
+    estimate from its composed trace (``core/depth.py``: probes of 2, 3
+    and 4 units; ``core/loops.py``: each long step loop run 6 and 7
+    steps) beside the estimate from the full trace, each with its wall
+    and CPU seconds, split between the trace and the replay; then each
+    config of ``DEPTH_PUBLISHED`` at its published depth: its estimate,
+    source and seconds, and, once ``go CAPACITY`` arrives on stdin, the
+    decision replayed at that capacity (the parent's serving capacity;
+    the traces from the cache): admit or reject; and xlstm-1.3b's
+    prefill at its published depth (``LOOPS_PREFILL``). The rows of
+    ``LOOP_ARCHS`` run in a process of their own (``loops``), started
+    first, which reads the same ``go CAPACITY`` line and whose rows join
+    this one's. Writes one JSON object to ``out_path``; fails if any
+    composed estimate differs from its full one by a byte, or any trace
+    was not composed where its stack is deeper than the depth probes or
+    its step has long loops."""
     from repro_torch.configs.base import smoke_shape
     from repro_torch.configs.registry import input_specs
+    from repro_torch.core.depth import PROBE_UNITS
     from repro_torch.core.estimator import XMemEstimator, trace_fwd_in_full
+    from repro_torch.launch import serve as srv
     from repro_torch.models import model as M
     from repro_torch.train import make_estimator_hooks
 
@@ -2360,62 +2383,146 @@ def phase_depth_compose(out_path: str) -> None:
                 "persistent": rep.persistent_bytes, "oom": rep.oom,
                 "depth": rep.depth}
 
-    full_rows, bad = [], []
-    for job, batch in DEPTH_FULL_JOBS.items():
-        arch, n_layers, _ = TRAIN_JOBS[job]
-        cfg, (fwd, params, specs, upd, init) = job_args(arch, n_layers, job,
-                                                       batch)
-        est = XMemEstimator.for_torch_gpu()
-        comp, comp_s, comp_cpu = timed(lambda: est.estimate_training(
-            fwd, params, specs, update_fn=upd, opt_init_fn=init))
-        ref = XMemEstimator.for_torch_gpu()
-        full, full_s, full_cpu = timed(lambda: ref.estimate_from_phases(
-            *ref.trace_phases(fwd, params, specs, upd, init,
-                              fwd=trace_fwd_in_full(fwd, params, specs))))
-        equal = all(getattr(comp, f) == getattr(full, f) for f in (
-            "peak_bytes", "peak_tensor_bytes", "persistent_bytes", "oom"))
-        full_rows.append({"job": job, "config": cfg.name,
-                          "n_layers": cfg.n_layers, "batch": batch,
-                          "composed": {**row(comp), "seconds": comp_s,
-                                       "cpu_s": comp_cpu},
-                          "full": {**row(full), "seconds": full_s,
-                                   "cpu_s": full_cpu},
-                          "equal_bytes": equal})
-        if not equal or comp.depth.get("source") != "composed":
-            bad.append(job)
-    ahead = {}
-    for arch, (job, batch) in DEPTH_PUBLISHED.items():
-        cfg, args = job_args(arch, None, job, batch)
-        fwd, params, specs, upd, init = args
-        est = XMemEstimator.for_torch_gpu()
-        rep, seconds, cpu_s = timed(lambda: est.estimate_training(
-            fwd, params, specs, update_fn=upd, opt_init_fn=init))
-        ahead[arch] = (cfg, job, batch, args, est, rep, seconds, cpu_s)
-    word, capacity = sys.stdin.readline().split()
-    if word != "go":
-        raise AssertionError("depth_compose: no capacity")
-    capacity = int(capacity)
-    published = []
-    for arch, (cfg, job, batch, args, est, rep, seconds, cpu_s) \
-            in ahead.items():
-        fwd, params, specs, upd, init = args
-        at, decide_s, _ = timed(lambda: est.estimate_training(
-            fwd, params, specs, update_fn=upd, opt_init_fn=init,
-            capacity=capacity))
-        published.append({
-            "config": cfg.name, "n_layers": cfg.n_layers, "job": job,
-            "batch": batch, "seq_len": TRAIN_SEQ, **row(rep),
-            "seconds": seconds, "cpu_s": cpu_s,
-            "admit": not at.oom and at.peak_bytes <= capacity,
-            "decide_seconds": decide_s})
-        if rep.depth.get("source") != "composed":
-            bad.append(arch)
-    Path(out_path).write_text(json.dumps({
-        "capacity": capacity, "against_full": full_rows,
-        "published": published}))
-    if bad:
-        raise AssertionError(f"depth_compose: {bad} not composed or not "
-                             f"equal to the full trace")
+    def composed(cfg, rep) -> bool:
+        """Composed where it should be: by depth past the probes'
+        units, by steps where the step has long loops."""
+        d = rep.depth
+        if M.repeat_unit(cfg)[0] > sum(PROBE_UNITS) \
+                and d.get("source") != "composed":
+            return False
+        return cfg.family not in ("ssm", "hybrid") or d.get(
+            "loops", {}).get("source") == "composed"
+
+    def split(trace, replay) -> dict:
+        """An estimate's trace and replay, each timed (wall, CPU s), and
+        when in this process's run it began (``at_s``)."""
+        at = time.perf_counter() - _T0
+        phases, trace_s, trace_cpu = timed(trace)
+        rep, replay_s, replay_cpu = timed(lambda: replay(phases))
+        return rep, {"at_s": at, "seconds": trace_s + replay_s,
+                     "cpu_s": trace_cpu + replay_cpu, "trace_s": trace_s,
+                     "trace_cpu_s": trace_cpu, "replay_s": replay_s,
+                     "replay_cpu_s": replay_cpu}
+
+    def mine(arch) -> bool:
+        return (arch in LOOP_ARCHS) == loops
+
+    child = None
+    if not loops:
+        loops_out = f"{out_path}.loops"
+        child = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--depth-compose-loops", loops_out], stdin=subprocess.PIPE,
+            text=True)
+    try:
+        bad = []
+        ahead = {}
+        for arch, (job, batch) in DEPTH_PUBLISHED.items():
+            if not mine(arch):
+                continue
+            cfg, args = job_args(arch, None, job, batch)
+            fwd, params, specs, upd, init = args
+            est = XMemEstimator.for_torch_gpu()
+            rep, t = split(
+                lambda: est.trace_phases(fwd, params, specs, upd, init),
+                lambda phases: est.estimate_from_phases(*phases))
+            ahead[arch] = (cfg, job, batch, args, est, rep, t)
+        prefill = None
+        if loops:
+            # xlstm-1.3b's serving estimate at its published depth: the
+            # prefill its gate traces at the batch it admits
+            cfg = path_config(SSM_ARCH)
+            batch, prompt = LOOPS_PREFILL
+            est = XMemEstimator.for_torch_gpu()
+            step, params = srv.make_prefill_fn(cfg), M.abstract_params(cfg)
+            cache = M.init_cache(cfg, batch, MAX_LEN, device="meta")
+            prompts = srv.prompt_specs(cfg, batch, prompt)
+            at = time.perf_counter() - _T0
+            first, first_s, first_cpu = timed(lambda: est.estimate_serving(
+                step, params, cache, prompts))
+            _again, replay_s, replay_cpu = timed(lambda: est.estimate_serving(
+                step, params, cache, prompts))
+            prefill = {"config": cfg.name, "n_layers": cfg.n_layers,
+                       "batch": batch, "prompt": prompt, "max_len": MAX_LEN,
+                       **row(first), "at_s": at, "seconds": first_s,
+                       "cpu_s": first_cpu,
+                       "trace_s": first_s - replay_s, "replay_s": replay_s,
+                       "replay_cpu_s": replay_cpu, "events": first.num_events}
+            if not composed(cfg, first):
+                bad.append(f"{cfg.name} prefill")
+        full_rows = []
+        for job, batch in DEPTH_FULL_JOBS.items():
+            arch, n_layers, _ = TRAIN_JOBS[job]
+            if not mine(arch):
+                continue
+            cfg, (fwd, params, specs, upd, init) = job_args(
+                arch, n_layers, job, batch)
+            est = XMemEstimator.for_torch_gpu()
+            comp, comp_t = split(
+                lambda: est.trace_phases(fwd, params, specs, upd, init),
+                lambda phases: est.estimate_from_phases(*phases))
+            ref = XMemEstimator.for_torch_gpu()
+            full, full_t = split(
+                lambda: ref.trace_phases(
+                    fwd, params, specs, upd, init,
+                    fwd=trace_fwd_in_full(fwd, params, specs)),
+                lambda phases: ref.estimate_from_phases(*phases))
+            equal = all(getattr(comp, f) == getattr(full, f) for f in (
+                "peak_bytes", "peak_tensor_bytes", "persistent_bytes", "oom"))
+            full_rows.append({"job": job, "config": cfg.name,
+                              "n_layers": cfg.n_layers, "batch": batch,
+                              "composed": {**row(comp), **comp_t},
+                              "full": {**row(full), **full_t},
+                              "events": comp.num_events,
+                              "equal_bytes": equal})
+            if not equal or not composed(cfg, comp):
+                bad.append(job)
+        line = sys.stdin.readline()
+        if child is not None:
+            child.stdin.write(line)
+            child.stdin.close()
+        word, capacity = line.split()
+        if word != "go":
+            raise AssertionError("depth_compose: no capacity")
+        capacity = int(capacity)
+        published = []
+        for arch, (cfg, job, batch, args, est, rep, t) in ahead.items():
+            fwd, params, specs, upd, init = args
+            # an unbounded replay whose peak fits never asks for more than
+            # the capacity, so a replay at the capacity is the same one: it
+            # admits; past the capacity the allocator frees its cache and
+            # retries, which only a replay at the capacity shows
+            at, decide_s = rep, 0.0
+            if rep.peak_bytes > capacity:
+                at, decide_s, _ = timed(lambda: est.estimate_training(
+                    fwd, params, specs, update_fn=upd, opt_init_fn=init,
+                    capacity=capacity))
+            published.append({
+                "config": cfg.name, "n_layers": cfg.n_layers, "job": job,
+                "batch": batch, "seq_len": TRAIN_SEQ, **row(rep), **t,
+                "events": rep.num_events,
+                "admit": not at.oom and at.peak_bytes <= capacity,
+                "decide_seconds": decide_s})
+            if not composed(cfg, rep):
+                bad.append(arch)
+        if child is not None:
+            if child.wait(timeout=900) != 0:
+                raise AssertionError(f"depth_compose: its loops process "
+                                     f"failed: exit {child.returncode}")
+            got = json.loads(Path(loops_out).read_text())
+            full_rows += got["against_full"]
+            published += got["published"]
+            prefill = got["prefill"]
+        Path(out_path).write_text(json.dumps({
+            "capacity": capacity, "against_full": full_rows,
+            "published": published, "prefill": prefill}))
+        if bad:
+            raise AssertionError(f"depth_compose: {bad} not composed or not "
+                                 f"equal to the full trace")
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
 
 
 def phase_serve_plan(out_path: str) -> None:
@@ -3066,6 +3173,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--depth-compose"] and len(sys.argv) == 3:
         phase_depth_compose(sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--depth-compose-loops"] and len(sys.argv) == 3:
+        phase_depth_compose(sys.argv[2], loops=True)
+        return 0
     if sys.argv[1:2] == ["--colocate-worker"] and len(sys.argv) == 3:
         colocate_worker(sys.argv[2])
         return 0
@@ -3100,9 +3210,11 @@ def main() -> int:
     # the depth composition at full width needs no card either: a process
     # of its own beside the training jobs, from the start
     depth_out = rows_dir / "depth_compose.json"
+    # (a session of its own: its loops process is stopped with it)
     depth = subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--depth-compose",
-         str(depth_out)], stdin=subprocess.PIPE, text=True)
+         str(depth_out)], stdin=subprocess.PIPE, text=True,
+        start_new_session=True)
     if mine:
         os.sched_setaffinity(depth.pid, theirs)
 
@@ -3158,6 +3270,10 @@ def main() -> int:
             if child.poll() is None:
                 child.kill()
                 child.wait()
+        try:
+            os.killpg(depth.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
         shutil.rmtree(rows_dir, ignore_errors=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(info["nvidia_smi"], flush=True)

@@ -23,21 +23,29 @@ traced at the real depth for real. Nothing is ever approximated.
   group between each two: the runs of every unit of one pass in one
   direction (a forward's units in order, a backward's in reverse; one
   forward and one backward group per microbatch). Each unit run is the
-  template of its class: the first unit, the last, or the middle ones.
-  A free names its block by where the alloc was: a fixed segment and an
-  offset, or a unit run, as a step ``u' - u`` from the freeing unit (or
-  as the first or last unit, from a fixed segment) and the alloc's name
-  in the run: its op, scope, kind and rank, and how many such allocs
-  came before it there. A name, not an offset, so a reference made to a
-  middle unit resolves in a first or last unit's run, which has allocs
-  of its own (the last unit's backward makes the stacked gradients).
+  template of its class (``_cls``): its distances from the group's
+  first and last units, each capped at ``edge`` (1 here: the first
+  unit, the last, or the middle ones; ``core/loops.py`` takes 2). A
+  free names its block by where the alloc was: a fixed segment and the
+  alloc's ordinal there, or a unit run and the alloc's name in the run:
+  its op, scope, kind and rank, and how many such allocs came before it
+  there (or after it). A name, not an offset, so a reference made to a
+  middle unit resolves in an edge unit's run, which has allocs of its
+  own (the last unit's backward makes the stacked gradients). From a
+  unit run the unit is a step ``u' - u`` from the freeing unit or, for
+  an edge unit, its class; the fit takes the first that both probes
+  share. From a fixed segment it is a ``RUN`` of units affine in the
+  group's count, one unit or a list of every unit's outputs dying at
+  once.
 * **The model.** Fitted on the first two probes: every fixed segment
-  and first and last run has the same events at both, and its sizes and
-  shape dims are integer-affine in the unit count (the stacked ``[L,
-  ...]`` parameters, cache and gradients make them so); a middle run is
-  taken as it is. Every other column follows: block ids number the
-  allocs in order, ``t`` is the position, a free's size, scope, kind
-  and shape are its block's.
+  and edge run has the same events at both, and its sizes and shape
+  dims are integer-affine in the unit count (the stacked ``[L, ...]``
+  parameters, cache and gradients make them so); the middle runs are
+  taken as they are, the same at every middle unit. Every other column
+  follows: block ids number the allocs in order, ``t`` is the
+  position, a free's size, scope, kind and shape are its block's. A
+  synthesis may give each group a unit count of its own (a step loop's
+  own step count, ``core/loops.py``).
 * **The check.** The model must reproduce the third probe's
   ``TracedPhase`` exactly (every trace column, the lifecycles, the input
   and output blocks, the abstract outputs), and the synthesized inputs
@@ -133,6 +141,10 @@ class _UnitLabels:
 
     def __init__(self, n: int):
         self.n = n
+        self.reset()
+
+    def reset(self) -> None:
+        """Back to before the first mark (another trace of the probe)."""
         self.marks = 0
         self.current = -1
         self.seq_starts: list[int] = []
@@ -205,26 +217,68 @@ def _segments(labels: Sequence[int], n: int):
     return segs, tuple(groups)
 
 
-def _cls(u: int, n: int) -> str:
-    return "first" if u == 0 else "last" if u == n - 1 else "mid"
+def _cls(u: int, n: int, edge: int = 1) -> tuple:
+    """Unit ``u``'s template class in a group of ``n``: its distances
+    from the group's first and last units, each capped at ``edge``;
+    ``(edge, edge)`` is the middle class, the units of which repeat."""
+    return min(u, edge), min(n - 1 - u, edge)
+
+
+def _edge_unit(cls: tuple, n: int, edge: int) -> int:
+    """The unit of an edge class ``cls`` in a group of ``n``."""
+    return cls[0] if cls[0] < edge else n - 1 - cls[1]
+
+
+def _collapse_runs(items: list) -> list:
+    """A fixed segment's ``(item, label)`` pairs with consecutive frees
+    that name one block in runs of consecutive units of one group (a
+    list of the steps' outputs dying at once) as one ``RUN`` item."""
+    out: list = []
+    for it, lab in items:
+        if it[0] == 0 and it[2][0][0] == "RUN" and out \
+                and out[-1][0][0] == 0 and out[-1][0][2][0][0] == "RUN" \
+                and out[-1][0][1] == it[1] and out[-1][1] == lab:
+            _r, g, s, e = out[-1][0][2][0][:4]
+            _r2, g2, s2 = it[2][0][:3]
+            d = s2 - e
+            names = {r[4:] for r in it[2]}
+            keep = tuple(("RUN", g, s, s2, *r[4:]) for r in out[-1][0][2]
+                         if r[4:] in names)
+            if g2 == g and keep and abs(d) == 1 \
+                    and (s == e or d == (1 if e > s else -1)):
+                out[-1] = ((0, it[1], keep), lab)
+                continue
+        out.append((it, lab))
+    return out
 
 
 @dataclasses.dataclass
 class _Probe:
-    """A probe trace taken apart: each segment instance's events as
-    structure (what must match across probes) and values (sizes and
-    shapes, which may move with the unit count)."""
+    """A probe trace taken apart: each segment instance's items as
+    structure (what must match across probes), values (sizes and shapes,
+    which may move with the unit count) and labels (``extra``: another
+    labelling of the events, carried through a synthesis).
+
+    A free names its block by where the alloc was. In a unit run, by
+    candidates that the fit chooses between: the alloc's unit as a step
+    from the freeing unit, and, for a first or last unit's alloc, that
+    class; in a fixed segment, by its fixed segment and item, or as a
+    ``RUN`` of units of a group (``("RUN", group, from, to, name)``,
+    the units affine in the group's count), which covers one unit's
+    alloc and a list of every unit's outputs dying at once."""
 
     n: int
+    edge: int
     entry: TracedPhase
     groups: tuple
-    # (template key, unit) -> (structure, sizes, shapes) of its events
+    # (template key, unit) -> (structure, sizes, shapes, extra labels)
     instances: dict
-    outputs: tuple       # each output block's (template key, offset)
+    outputs: tuple       # each output block's (template key, item)
     n_inputs: int
 
     @staticmethod
-    def parse(n: int, entry: TracedPhase, labels) -> "_Probe | None":
+    def parse(n: int, entry: TracedPhase, labels, extra=None,
+              edge: int = 1) -> "_Probe | None":
         cut = _segments(labels, n)
         if cut is None:
             return None
@@ -245,58 +299,83 @@ class _Probe:
             return (1, ops[c.op[i]], scopes[c.scope[i]],
                     int(c.block_kind[i]), None if shape is None else len(shape))
 
-        # each alloc's name within its unit run: its token and how many
-        # allocs of that token came before it in the run
+        # each alloc's names within its unit run: its token and how many
+        # allocs of that token come before it in the run, or (negative)
+        # after it; each fixed alloc's ordinal in its segment
         name_of = {}
+        item_of = {}
         for key, _u, s, e in segs:
             if key[0] == "U":
                 seen: dict = {}
                 for i in range(s, e):
                     if kind[i]:
                         tok = token(i)
-                        name_of[i] = (tok, seen.get(tok, 0))
+                        name_of[i] = [tok, seen.get(tok, 0)]
                         seen[tok] = seen.get(tok, 0) + 1
+                for i in range(s, e):
+                    if kind[i]:
+                        tok, k = name_of[i]
+                        name_of[i] = ((tok, k), (tok, k - seen[tok]))
+            else:
+                a = 0
+                for i in range(s, e):
+                    if kind[i]:
+                        item_of[i] = a
+                        a += 1
 
-        def ref(si: int, ti: int):
-            """How the free at segment ``si`` names the alloc at ``ti``."""
+        def cands(si: int, ti: int):
+            """How the free at segment ``si`` may name the alloc at
+            ``ti``."""
             key, u, _s, _e = segs[si]
             tkey, tu, ts, _te = segs[int(seg_of[ti])]
             if tkey[0] == "F":
-                return ("F", tkey[1], ti - ts)
-            if key[0] == "U":
-                return ("U", tkey[1], tu - u, *name_of[ti])
-            if tu in (0, n - 1):
-                return ("U" + _cls(tu, n), tkey[1], *name_of[ti])
-            return None
+                return (("F", tkey[1], item_of[ti]),)
+            g, names = tkey[1], name_of[ti]
+            if key[0] == "F":
+                return tuple(("RUN", g, tu, tu, *nm) for nm in names)
+            out = [("U", g, tu - u, *nm) for nm in names]
+            if (tkey, tu) != (key, u):
+                if tu < edge:
+                    out.extend(("Uhead", g, tu, *nm) for nm in names)
+                if n - 1 - tu < edge:
+                    out.extend(("Utail", g, n - 1 - tu, *nm) for nm in names)
+            return tuple(out)
 
+        ex = None if extra is None else np.asarray(extra)
         instances: dict = {}
         for si, (key, u, s, e) in enumerate(segs):
-            tkey = key if key[0] == "F" else (key[0], key[1], _cls(u, n))
-            struct, sizes, shp = [], [], []
+            tkey = key if key[0] == "F" else (key[0], key[1],
+                                              _cls(u, n, edge))
+            struct, sizes, shp, labs = [], [], [], []
             for i in range(s, e):
                 if kind[i]:
                     struct.append(token(i))
                     sizes.append(int(c.size[i]))
                     shp.append(shapes[c.shape[i]])
-                    continue
-                ti = alloc_at.get(int(c.block_id[i]))
-                if ti is None or ti > i:
-                    return None
-                r = ref(si, ti)
-                if r is None:
-                    return None
-                struct.append((0, ops[c.op[i]], r))
-            instances[(tkey, u)] = (tuple(struct), sizes, shp)
+                else:
+                    ti = alloc_at.get(int(c.block_id[i]))
+                    if ti is None or ti > i:
+                        return None
+                    struct.append((0, ops[c.op[i]], cands(si, ti)))
+                labs.append(None if ex is None else int(ex[i]))
+            if key[0] == "F":
+                merged = _collapse_runs(list(zip(struct, labs)))
+                struct = [it for it, _l in merged]
+                labs = [lab for _it, lab in merged]
+            instances[(tkey, u)] = (tuple(struct), sizes, shp, tuple(labs))
         outputs = []
         for b in entry.output_blocks:
             i = alloc_at[b.bid]
             key, u, s, _e = segs[int(seg_of[i])]
-            tkey = key if key[0] == "F" else (key[0], key[1], _cls(u, n))
-            outputs.append((tkey, i - s))
+            if key[0] == "F":
+                outputs.append((key, item_of[i]))
+            else:
+                outputs.append(((key[0], key[1], _cls(u, n, edge)), i - s))
         n_inputs = len(entry.input_blocks)
         if [b.bid for b in entry.input_blocks] != list(range(n_inputs)):
             return None
-        return _Probe(n, entry, groups, instances, tuple(outputs), n_inputs)
+        return _Probe(n, edge, entry, groups, instances, tuple(outputs),
+                      n_inputs)
 
     def templates(self) -> dict:
         """Template key -> its instances (a middle class has several)."""
@@ -307,10 +386,12 @@ class _Probe:
 
 
 def _affine(a, b, na: int, nb: int):
-    """Integer ``(y0, y1)`` with ``y = y0 + y1 * n`` through two probes,
-    or None."""
+    """Integer ``(y0, y1)`` with ``y = y0 + y1 * n`` through two probes
+    (through one, ``na == nb``: the constant), or None."""
     a = np.asarray(a, dtype=np.int64)
     b = np.asarray(b, dtype=np.int64)
+    if na == nb:
+        return (b, np.zeros_like(b)) if np.array_equal(a, b) else None
     d = b - a
     if np.any(d % (nb - na)):
         return None
@@ -318,14 +399,94 @@ def _affine(a, b, na: int, nb: int):
     return a - y1 * na, y1
 
 
+def _anchor(u: int, n: int, edge: int):
+    """Unit ``u`` of a group of ``n`` as ``(y0, y1)``, ``u = y0 + y1 *
+    n``: counted from the group's start or end, whichever it is within
+    ``edge`` of; None for a middle unit."""
+    if u < edge:
+        return u, 0
+    if u >= n - edge:
+        return u - n, 1
+    return None
+
+
+def _fit_struct(sa, sb, na: int, nb: int, edge: int = 1):
+    """One template's structure fitted on two probes (``na`` and ``nb``
+    units; ``na == nb`` for the instances of a middle class, or for a
+    fit on one probe): allocs equal, each free's name the first
+    candidate every instance shares, a ``RUN``'s units affine in the
+    count (from one probe: anchored to the group's nearer end); None
+    when they differ."""
+    if len(sa) != len(sb):
+        return None
+    out = []
+    for x, y in zip(sa, sb):
+        if x[0] == 1 or y[0] == 1:
+            if x != y:
+                return None
+            out.append(x)
+            continue
+        if x[1] != y[1]:
+            return None
+        if (x[2][0][0] == "RUN") != (y[2][0][0] == "RUN"):
+            return None
+        if x[2][0][0] == "RUN":
+            rx, ry = x[2][0], y[2][0]
+            if rx[1] != ry[1]:
+                return None
+            if na == nb:
+                if rx[2:4] != ry[2:4]:
+                    return None
+                ends = tuple(_anchor(u, na, edge) for u in rx[2:4])
+                if None in ends:
+                    return None
+            else:
+                fit = _affine(rx[2:4], ry[2:4], na, nb)
+                if fit is None:
+                    return None
+                (s0, e0), (s1, e1) = fit
+                ends = ((int(s0), int(s1)), (int(e0), int(e1)))
+            names = {r[4:] for r in y[2]}
+            both = tuple(("RUN", rx[1], *ends, *r[4:]) for r in x[2]
+                         if r[4:] in names)
+        else:
+            both = tuple(r for r in x[2] if r in y[2])
+        if not both:
+            return None
+        out.append((0, x[1], both))
+    return tuple(out)
+
+
+def _chosen(struct, edge_first: bool = False):
+    """A fitted structure with each free's first shared candidate, or
+    (``edge_first``) its first that names an edge unit's class: from one
+    probe, a step between two edge units can be the count's."""
+    def pick(refs):
+        if edge_first:
+            for r in refs:
+                if r[0] in ("Uhead", "Utail"):
+                    return r
+        return refs[0]
+    return tuple(it if it[0] == 1 else (0, it[1], pick(it[2]))
+                 for it in struct)
+
+
 class _DepthModel:
     """Templates and affine values fitted on two probes (see the module
     docstring); ``synthesize(N)`` builds the phase at ``N`` units."""
 
-    def __init__(self, pa: _Probe, pb: _Probe):
+    def __init__(self, pa: _Probe, pb: _Probe | None = None):
+        # one probe (``pb`` None): every size and shape taken as constant
+        # in the count, which the check on another probe must confirm
+        single = pb is None
+        if single:
+            pb = pa
         self.ok = False
         self.template_entry = pb.entry
-        if pa.groups != pb.groups or pa.outputs != pb.outputs \
+        self.edge = edge = pb.edge
+        mid = (edge, edge)
+        if pa.edge != edge or pa.groups != pb.groups \
+                or pa.outputs != pb.outputs \
                 or pa.n_inputs != pb.n_inputs \
                 or pa.entry.arg_leaf_counts != pb.entry.arg_leaf_counts:
             return
@@ -335,19 +496,26 @@ class _DepthModel:
         ta, tb = pa.templates(), pb.templates()
         fitted: dict = {}
         for tkey, insts in tb.items():
-            struct, sizes, shapes = insts[0]
-            if any(i[0] != struct or i[1] != sizes or i[2] != shapes
+            struct, sizes, shapes, labs = insts[0]
+            if any(i[1] != sizes or i[2] != shapes or i[3] != labs
                    for i in insts[1:]):
                 return
-            if tkey[0] == "U" and tkey[2] == "mid":
+            if tkey[0] == "U" and tkey[2] == mid:
+                for i in insts[1:]:
+                    struct = _fit_struct(struct, i[0], pb.n, pb.n, edge)
+                    if struct is None:
+                        return
                 model = (np.asarray(sizes, dtype=np.int64),
                          np.zeros(len(sizes), dtype=np.int64))
                 shape_models = [None if s is None else (s, (0,) * len(s))
                                 for s in shapes]
-                fitted[tkey] = (struct, model, shape_models)
+                fitted[tkey] = (_chosen(struct), model, shape_models, labs)
                 continue
             other = ta.get(tkey)
-            if other is None or len(other) != 1 or other[0][0] != struct:
+            if other is None or len(other) != 1 or other[0][3] != labs:
+                return
+            fs = _fit_struct(other[0][0], struct, pa.n, pb.n, edge)
+            if fs is None:
                 return
             model = _affine(other[0][1], sizes, pa.n, pb.n)
             if model is None:
@@ -362,14 +530,16 @@ class _DepthModel:
                     return
                 shape_models.append(tuple(tuple(int(x) for x in v)
                                           for v in m))
-            fitted[tkey] = (struct, model, shape_models)
-        if set(fitted) - {k for k in fitted if k[0] == "U"
-                          and k[2] == "mid"} != set(ta):
+            fitted[tkey] = (_chosen(fs, single), model, shape_models,
+                            labs)
+        def edges(keys):
+            return {k for k in keys if not (k[0] == "U" and k[2] == mid)}
+        if edges(fitted) != edges(ta):
             return
         self.fitted = fitted
         # each unit template's allocs by name (see ``_Probe.parse``)
         self.names = {}
-        for tkey, (struct, _m, _s) in fitted.items():
+        for tkey, (struct, _m, _s, _l) in fitted.items():
             if tkey[0] == "U":
                 seen: dict = {}
                 names = self.names[tkey] = {}
@@ -377,6 +547,8 @@ class _DepthModel:
                     if r[0] == 1:
                         names[(r, seen.get(r, 0))] = o
                         seen[r] = seen.get(r, 0) + 1
+                for (r, k), o in list(names.items()):
+                    names[(r, k - seen[r])] = o
         # the abstract outputs: the same tree, each leaf's dims affine
         la, sa = pytree.tree_flatten(pa.entry.out_shape)
         lb, sb = pytree.tree_flatten(pb.entry.out_shape)
@@ -394,148 +566,210 @@ class _DepthModel:
         self.out_spec, self.out_dims = sb, dims
         self.ok = True
 
-    def synthesize(self, N: int) -> TracedPhase | None:
-        """The phase at ``N`` units, or None when it cannot be built
-        (a reference outside the stack, a double free, a negative
-        size)."""
-        if N < 2:
-            return None
-        fitted = self.fitted
-        order = []            # (segment key, unit or None), in order
+    def synthesize(self, N: int, units: Sequence[int] | None = None):
+        """The phase at ``N`` units and its extra labels, or None when
+        it cannot be built (a reference outside the stack, a double
+        free, a negative size). ``units`` gives each group's own unit
+        count (default ``N`` for all); sizes and shapes are taken at
+        ``N``. Each instance's columns are its template's, laid down by
+        slices; a free's block is resolved in Python, the checks and
+        the blocks' columns are vector operations."""
         n_groups = len(self.groups)
+        units = [N] * n_groups if units is None else list(units)
+        if len(units) != n_groups or any(n < 2 * self.edge for n in units):
+            return None
+        edge = self.edge
+        order = []            # (segment key, unit or None, group count)
         for k in range(n_groups + 1):
-            order.append((("F", k), None))
+            order.append((("F", k), None, 0))
             if k == n_groups:
                 break
-            step = self.groups[k][1]
-            units = range(N) if step == 1 else range(N - 1, -1, -1)
-            order.extend((("U", k), u) for u in units)
+            step, n = self.groups[k][1], units[k]
+            us = range(n) if step == 1 else range(n - 1, -1, -1)
+            order.extend((("U", k), u, n) for u in us)
 
-        def tkey_of(key, u):
-            return key if u is None else (key[0], key[1], _cls(u, N))
+        def run_units(r):
+            n = units[r[1]]
+            a, b = r[2][0] + r[2][1] * n, r[3][0] + r[3][1] * n
+            return range(a, b + 1) if b >= a else range(a, b - 1, -1)
 
-        # pass 1: where each instance starts
-        starts = {}
-        g = 0
-        for key, u in order:
-            starts[(key, u)] = g
-            g += len(fitted[tkey_of(key, u)][0])
-        T = g
-        kind = np.zeros(T, dtype=np.uint8)
-        bid = np.zeros(T, dtype=np.int64)
-        size = np.zeros(T, dtype=np.int64)
-        bkind = np.zeros(T, dtype=np.uint8)
-        op: list = [None] * T
-        scope: list = [None] * T
-        shape: list = [None] * T
-        freed = np.zeros(T, dtype=bool)
-        next_bid = 0
-        for key, u in order:
-            struct, (s0, s1), shape_models = fitted[tkey_of(key, u)]
+        # each template at N: its items laid out as events (a fixed
+        # segment's RUN items expanded), with op, scope, kind, size and
+        # shape ids, interned in the order the events first show them
+        ops, scopes, shapes = (StringInterner(), StringInterner(),
+                               StringInterner([None]))
+        tpls: dict = {}
+
+        def template(tkey):
+            got = tpls.get(tkey)
+            if got is not None:
+                return got
+            struct, (s0, s1), shape_models, labs = self.fitted[tkey]
             sizes = s0 + s1 * N
             if (sizes < 0).any():
                 return None
-            g0 = starts[(key, u)]
+            kind, op, scope, bkind, size, shape, lab, frees = \
+                [], [], [], [], [], [], [], []
             a = 0
-            for o, r in enumerate(struct):
-                i = g0 + o
-                op[i] = r[1]
+            for r, lb in zip(struct, labs):
                 if r[0] == 1:
-                    kind[i] = 1
-                    bid[i] = next_bid
-                    next_bid += 1
-                    size[i] = sizes[a]
-                    scope[i] = r[2]
-                    bkind[i] = r[3]
                     m = shape_models[a]
-                    if m is not None:
-                        dims = tuple(d0 + d1 * N for d0, d1 in zip(*m))
-                        if any(d < 0 for d in dims):
-                            return None
-                        shape[i] = dims
+                    dims = None if m is None else tuple(
+                        d0 + d1 * N for d0, d1 in zip(*m))
+                    if dims is not None and any(d < 0 for d in dims):
+                        return None
+                    kind.append(1)
+                    op.append(ops.intern(r[1]))
+                    scope.append(scopes.intern(r[2]))
+                    bkind.append(r[3])
+                    size.append(int(sizes[a]))
+                    shape.append(shapes.intern(dims))
+                    lab.append(lb)
                     a += 1
                     continue
-                ref = r[2]
-                if ref[0] == "F":
-                    ti = starts[(("F", ref[1]), None)] + ref[2]
-                else:
-                    if ref[0] == "U":
-                        if u is None:
-                            return None
-                        tu, name = u + ref[2], ref[3:]
-                    else:
-                        tu = 0 if ref[0] == "Ufirst" else N - 1
-                        name = ref[2:]
-                    if not 0 <= tu < N:
-                        return None
-                    tkey = ("U", ref[1], _cls(tu, N))
-                    off = self.names[tkey].get(name)
-                    if off is None:
-                        return None
-                    ti = starts[(("U", ref[1]), tu)] + off
-                if not 0 <= ti < i or not kind[ti] or freed[ti]:
-                    return None
-                freed[ti] = True
-                bid[i] = bid[ti]
-                size[i] = size[ti]
-                scope[i] = scope[ti]
-                bkind[i] = bkind[ti]
-                shape[i] = shape[ti]
-        return self._assemble(N, kind, bid, size, bkind, op, scope, shape,
-                              starts)
+                count = len(run_units(r[2])) if r[2][0] == "RUN" else 1
+                frees.append((len(kind), r[2]))
+                o = ops.intern(r[1])
+                kind += [0] * count
+                op += [o] * count
+                scope += [0] * count
+                bkind += [0] * count
+                size += [0] * count
+                shape += [0] * count
+                lab += [lb] * count
+            got = tpls[tkey] = (np.asarray(kind, dtype=np.uint8),
+                                np.asarray(op, dtype=np.int32),
+                                np.asarray(scope, dtype=np.int32),
+                                np.asarray(bkind, dtype=np.uint8),
+                                np.asarray(size, dtype=np.int64),
+                                np.asarray(shape, dtype=np.int32), lab,
+                                frees)
+            return got
 
-    def _assemble(self, N, kind, bid, size, bkind, op, scope, shape,
-                  starts) -> TracedPhase:
+        # pass 1: each instance's template and start; each fixed alloc's
+        # event by its ordinal
+        starts = {}
+        placed = []
+        fixed_pos = {}
+        g = 0
+        for key, u, n in order:
+            tkey = key if u is None else (key[0], key[1], _cls(u, n, edge))
+            tp = template(tkey)
+            if tp is None:
+                return None
+            starts[(key, u)] = g
+            placed.append((key, u, tp, g))
+            if u is None:
+                fixed_pos[key[1]] = g + np.flatnonzero(tp[0])
+            g += len(tp[0])
+        T = g
+        kind = np.zeros(T, dtype=np.uint8)
+        op = np.zeros(T, dtype=np.int32)
+        scope = np.zeros(T, dtype=np.int32)
+        bkind = np.zeros(T, dtype=np.uint8)
+        size = np.zeros(T, dtype=np.int64)
+        shape = np.zeros(T, dtype=np.int32)
+        target = np.full(T, -1, dtype=np.int64)
+        labels: list = [None] * T
+
+        def unit_alloc(gk, tu, name):
+            n = units[gk]
+            if not 0 <= tu < n:
+                return -1
+            off = self.names.get(("U", gk, _cls(tu, n, edge)), {}).get(
+                tuple(name))
+            return -1 if off is None else starts[(("U", gk), tu)] + off
+
+        for key, u, tp, s in placed:
+            e = s + len(tp[0])
+            kind[s:e], op[s:e], scope[s:e], bkind[s:e], size[s:e], \
+                shape[s:e] = tp[:6]
+            labels[s:e] = tp[6]
+            for i, ref in tp[7]:
+                i += s
+                if ref[0] == "RUN":
+                    ts = [unit_alloc(ref[1], tu, ref[4:])
+                          for tu in run_units(ref)]
+                    target[i:i + len(ts)] = ts
+                    continue
+                if ref[0] == "F":
+                    pos = fixed_pos.get(ref[1])
+                    ti = -1 if pos is None or ref[2] >= len(pos) \
+                        else pos[ref[2]]
+                elif ref[0] == "U":
+                    if u is None:
+                        return None
+                    ti = unit_alloc(ref[1], u + ref[2], ref[3:])
+                else:
+                    tu = ref[2] if ref[0] == "Uhead" \
+                        else units[ref[1]] - 1 - ref[2]
+                    ti = unit_alloc(ref[1], tu, ref[3:])
+                target[i] = ti
+        free = np.flatnonzero(kind == 0)
+        t = target[free]
+        if (t < 0).any() or (t >= free).any() or not kind[t].all() \
+                or len(np.unique(t)) != len(t):
+            return None
+        alloc = np.flatnonzero(kind)
+        bid = np.zeros(T, dtype=np.int64)
+        bid[alloc] = np.arange(len(alloc), dtype=np.int64)
+        bid[free] = bid[t]
+        for col in (scope, bkind, size, shape):
+            col[free] = col[t]
+        out = self._assemble(N, units, kind, bid, size, bkind, op, scope,
+                             shape, (ops.table, scopes.table, shapes.table),
+                             starts, fixed_pos)
+        return None if out is None else (out, labels)
+
+    def _assemble(self, N, units, kind, bid, size, bkind, op, scope, shape,
+                  tables, starts, fixed_pos) -> TracedPhase | None:
         tp = self.template_entry
         tc = tp.trace.columnar()
         T = len(kind)
-        ops, scopes, shapes = (StringInterner(), StringInterner(),
-                               StringInterner([None]))
+        op_table, scope_table, shape_table = tables
         columns = ColumnarTrace.from_columns(
             kind, bid, size, np.arange(T, dtype=np.int64),
             np.full(T, tc.iteration[0] if len(tc) else 0, dtype=np.int64),
             np.full(T, tc.phase[0] if len(tc) else 0, dtype=np.uint8),
-            [ops.intern(x) for x in op], [scopes.intern(x) for x in scope],
-            bkind, ops.table, scopes.table,
-            [shapes.intern(x) for x in shape], shapes.table,
+            op, scope, bkind, op_table, scope_table, shape, shape_table,
             np.zeros(T, dtype=np.uint8))
         meta = {k: v for k, v in tp.trace.meta.items()
-                if k not in ("_columns", "depth")}
+                if k not in ("_columns", "depth", "loops")}
         trace = Trace.from_columnar(columns, num_iterations=1, meta=meta)
         # lifecycles, as the tracer keeps its blocks: in id order, the
         # kernel temporaries of one op all born at the first one's alloc
-        free_t = {}
-        for i in np.flatnonzero(kind == 0):
-            free_t[int(bid[i])] = int(i)
+        alloc = np.flatnonzero(kind)
+        free = np.flatnonzero(kind == 0)
+        free_t = np.full(len(alloc), -1, dtype=np.int64)
+        free_t[bid[free]] = free
+        is_temp = bkind == KIND_CODE[BlockKind.TEMP]
+        follows = np.zeros(T, dtype=bool)
+        follows[1:] = is_temp[1:] & (kind[:-1] == 1) & is_temp[:-1]
+        born = np.maximum.accumulate(np.where(follows[alloc], 0, alloc))
         it = int(tc.iteration[0]) if len(tc) else 0
         phase = PHASE_TABLE[tc.phase[0]] if len(tc) else None
-        temp = KIND_CODE[BlockKind.TEMP]
-        lifecycles = []
-        born = 0
-        for i in np.flatnonzero(kind):
-            i = int(i)
-            if not (bkind[i] == temp and i and kind[i - 1]
-                    and bkind[i - 1] == temp):
-                born = i
-            lifecycles.append(BlockLifecycle(
-                int(bid[i]), int(size[i]), born, free_t.get(int(bid[i])),
-                it, phase, op[i], scope[i], KIND_TABLE[bkind[i]], 1.0,
-                shape[i]))
-        lifecycles = tuple(lifecycles)
+        lifecycles = tuple(
+            BlockLifecycle(b, sz, br, None if ft < 0 else ft, it, phase,
+                           op_table[o], scope_table[sc], KIND_TABLE[bk],
+                           1.0, shape_table[sh])
+            for b, sz, br, ft, o, sc, bk, sh in zip(
+                range(len(alloc)), size[alloc].tolist(), born.tolist(),
+                free_t.tolist(), op[alloc].tolist(), scope[alloc].tolist(),
+                bkind[alloc].tolist(), shape[alloc].tolist()))
         inputs = tuple(BlockInfo(lc.block_id, lc.size, lc.block_kind,
                                  lc.shape)
                        for lc in lifecycles[:self.n_inputs])
         outs = []
         for (tkey, off), b in zip(self.outputs, tp.output_blocks):
             if tkey[0] == "F":
-                i = starts[(tkey, None)] + off
-            elif tkey[2] == "mid":
+                i = fixed_pos[tkey[1]][off]
+            elif tkey[2] == (self.edge, self.edge):
                 return None
             else:
-                i = starts[(tkey[:2], 0 if tkey[2] == "first"
-                            else N - 1)] + off
+                i = starts[(tkey[:2], _edge_unit(tkey[2], units[tkey[1]],
+                                                 self.edge))] + off
             outs.append(BlockInfo(int(bid[i]), int(size[i]), b.kind,
-                                  shape[i]))
+                                  shape_table[shape[i]]))
         leaves = [torch.empty(tuple(int(d0 + d1 * N)
                                     for d0, d1 in zip(*m)),
                               dtype=dt, device="meta")
@@ -575,8 +809,16 @@ def phases_equal(a: TracedPhase, b: TracedPhase) -> bool:
 
 def summary(info: dict) -> dict:
     """A trace's depth info as a decision reports it: ``source``, the
-    real depth's ``units`` and the ``units_traced`` to make it."""
-    return {k: info.get(k) for k in ("source", "units", "units_traced")}
+    real depth's ``units`` and the ``units_traced`` to make it, and,
+    for a step with long loops, their composition (``loops``: its
+    ``source``, the ``steps`` and the ``steps_traced``, ``why`` one fell
+    back)."""
+    out = {k: info.get(k) for k in ("source", "units", "units_traced")}
+    loops = info.get("loops")
+    if loops:
+        out["loops"] = {k: loops[k] for k in ("source", "why", "steps",
+                                              "steps_traced") if k in loops}
+    return out
 
 
 def _sig(trees) -> tuple:
@@ -638,13 +880,14 @@ def compose(plan: DepthPlan, args_with_kinds: Sequence[tuple],
         info["why"] = "fit"
         return None, info
     check = model.synthesize(probes[2].n)
-    if check is None or not phases_equal(check, probes[2].entry):
+    if check is None or not phases_equal(check[0], probes[2].entry):
         info["why"] = f"check at {probes[2].n} units"
         return None, info
     out = model.synthesize(N)
     if out is None:
         info["why"] = f"synthesis at {N} units"
         return None, info
+    out = out[0]
     flat = [t for t in pytree.tree_leaves(trees)
             if isinstance(t, torch.Tensor)]
     if [(b.size, b.shape) for b in out.input_blocks] != \

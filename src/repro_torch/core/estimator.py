@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import types
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -64,6 +65,7 @@ from .allocator import AllocatorPolicy, CUDA_CACHING, CUDA_CACHING_TORCH
 from .analyzer import classify_blocks, phase_peaks, reconstruct_lifecycles
 from .cache import BlockInfo, TraceCache, TracedPhase, trace_key
 from .depth import compose, depth_plan
+from .loops import compose_steps, merge_loops
 from .events import (BlockKind, BlockLifecycle, MemorySpace, PeriodicBlocks,
                      Phase, peak_live_bytes, periodic_breakdown_peaks_fast,
                      reduced_for_breakdown)
@@ -128,7 +130,7 @@ def _to_meta(tree):
 
 
 def trace_entry(fn, args_with_kinds, phase, out_kind_fn=None,
-                grad: bool = False, labeller=None):
+                grad: bool = False, labeller=None, step_labeller=None):
     """Trace ``fn`` on the ``(tree, kind, name)`` arguments into a
     ``TracedPhase``; returns it and the tracer."""
     flat, kinds, scopes = flatten_kinds(args_with_kinds)
@@ -144,7 +146,8 @@ def trace_entry(fn, args_with_kinds, phase, out_kind_fn=None,
 
     trace, tr, out = trace_fn(flat_fn, *flat, arg_kinds=kinds,
                               arg_scopes=scopes, phase=phase, grad=grad,
-                              out_kind_fn=out_kind_fn, labeller=labeller)
+                              out_kind_fn=out_kind_fn, labeller=labeller,
+                              step_labeller=step_labeller)
     entry = TracedPhase(
         trace=trace, lifecycles=tuple(tr.lifecycles()),
         input_blocks=tuple(BlockInfo(b.bid, b.size, b.kind, b.shape)
@@ -153,6 +156,17 @@ def trace_entry(fn, args_with_kinds, phase, out_kind_fn=None,
                             for b in tr.output_blocks),
         out_shape=_to_meta(out), arg_leaf_counts=tuple(counts))
     return entry, tr
+
+
+def _depth_info(entry: TracedPhase) -> dict:
+    """How a stepped phase's trace was made, as a report carries it:
+    its depth composition, with its step-loop composition (``loops``)
+    when it has loops long enough to compose."""
+    depth = dict(entry.trace.meta.get("depth") or {})
+    loops = entry.trace.meta.get("loops")
+    if depth and loops and loops["loops"]:
+        depth["loops"] = dict(loops)
+    return depth
 
 
 def trace_fwd_in_full(fwd_bwd_fn, params, batch) -> TracedPhase:
@@ -180,7 +194,8 @@ class EstimateReport:
     composition: Any = dataclasses.field(default=None, repr=False)
     sim_unbounded: bool = False
     # how the stepped phase's trace was made (``depth.py``): ``source``
-    # "composed", "traced" or "fallback", the units, the units traced;
+    # "composed", "traced" or "fallback", the units, the units traced,
+    # and its step loops' composition (``loops``, ``loops.py``);
     # ``probe_traces``: the probes this estimate traced (0 on a hit)
     depth: dict = dataclasses.field(default_factory=dict)
 
@@ -275,9 +290,11 @@ class XMemEstimator:
                      grad: bool = False, cached: bool = True) -> TracedPhase:
         """One phase's trace, from the cache or fresh. On the fast path a
         step with a depth plan deep enough is composed from probe traces
-        (``depth.py``); the result is one trace all the same, cached and
-        stored under the real depth's key, and the probes are counted on
-        their own (``probe_traces``)."""
+        (``depth.py``), and the long step loops inside its layers from
+        probes at a few steps, in the phase or in each depth probe
+        (``loops.py``); the result is one trace all the same, cached and
+        stored under the real key, and the probes are counted on their
+        own (``probe_traces``)."""
         flat, kinds, _ = flatten_kinds(args_with_kinds)
         specs = [pytree.tree_structure(t) for t, _, _ in args_with_kinds]
         cache = self.trace_cache if cached else None
@@ -291,21 +308,39 @@ class XMemEstimator:
             self.checkpoint("tracer")
         plan = depth_plan(fn) if cached and self.fastpath else None
         entry = None
+        made: list[dict] = []     # each trace's step-loop composition
+
+        def traced(f, awk, labeller=None):
+            """One trace of ``f``, its step loops composed (loops.py)."""
+            e, labels, li = compose_steps(
+                lambda step_labeller, unit_labeller: trace_entry(
+                    f, awk, phase, out_kind_fn, grad, unit_labeller,
+                    step_labeller), labeller)
+            made.append(li)
+            self.probe_traces += li["probes"]
+            # what ``depth.compose`` reads of a tracer: the unit labels
+            return e, types.SimpleNamespace(labels=labels)
+
         with obs_spans.span("estimator.trace", phase=str(phase), tag=tag):
             if plan is not None and plan.composes:
-                entry, info = compose(
-                    plan, args_with_kinds,
-                    lambda f, awk, labeller: trace_entry(
-                        f, awk, phase, out_kind_fn, grad, labeller))
-                self.probe_traces += info["probes"]
-            if entry is None:
+                entry, info = compose(plan, args_with_kinds, traced)
+                # a depth probe whose loops were composed is counted by
+                # its step probes, not as a trace of its own
+                self.probe_traces += sum(not li["probes"]
+                                         for li in made[:info["probes"]])
+            if entry is None and plan is None:
                 entry, _tr = trace_entry(fn, args_with_kinds, phase,
                                          out_kind_fn, grad)
-                if plan is not None:
-                    entry.trace.meta["depth"] = (
-                        info if plan.composes
-                        else {"source": "traced", "units": plan.units,
-                              "units_traced": plan.units})
+            elif entry is None:
+                entry, _tr = traced(fn, args_with_kinds)
+                entry.trace.meta["depth"] = (
+                    info if plan.composes
+                    else {"source": "traced", "units": plan.units,
+                          "units_traced": plan.units})
+            if plan is not None:
+                entry.trace.meta["loops"] = merge_loops(
+                    made, composed_depth=entry.trace.meta["depth"].get(
+                        "source") == "composed")
         if cache is not None:
             cache.put(fn, key, entry)
         return entry
@@ -635,7 +670,7 @@ class XMemEstimator:
             cache_stats=cache_stats,
             composition=pb,
             sim_unbounded=(capacity or self.capacity) >= (1 << 62),
-            depth=dict(fwd.trace.meta.get("depth") or {}))
+            depth=_depth_info(fwd))
 
     # -- the frozen reference pipeline (fastpath=False) ----------------------
     def _compose_reference(self, fwd: TracedPhase, upd: TracedPhase | None,
@@ -852,7 +887,7 @@ class XMemEstimator:
              (cache, BlockKind.CACHE, "cache"),
              (batch, BlockKind.INPUT, "batch")],
             Phase.DECODE, tag="serve")
-        depth = dict(entry.trace.meta.get("depth") or {})
+        depth = _depth_info(entry)
         if depth:
             depth["probe_traces"] = self.probe_traces - p0
         return entry, depth

@@ -148,6 +148,9 @@ class TorchMemoryTracer(TorchDispatchMode):
         # once an event, its values kept in ``labels``
         self.labeller: Callable[[], int] | None = None
         self.labels: list[int] = []
+        # a step probe's step of each event (``core/loops.py``)
+        self.step_labeller: Callable[[], int] | None = None
+        self.step_labels: list[int] = []
 
     @property
     def num_events(self) -> int:
@@ -165,6 +168,8 @@ class TorchMemoryTracer(TorchDispatchMode):
         self._ev_shape.append(self._shapes.intern(b.shape))
         if self.labeller is not None:
             self.labels.append(self.labeller())
+        if self.step_labeller is not None:
+            self.step_labels.append(self.step_labeller())
         self.t += 1
 
     def _new_block(self, t: torch.Tensor, op: str, kind: BlockKind,
@@ -284,7 +289,8 @@ def trace_fn(fn: Callable, *args, arg_kinds: Sequence[BlockKind] | None = None,
              phase: Phase = Phase.FORWARD_BACKWARD, iteration: int = 0,
              grad: bool = False,
              out_kind_fn: Callable | None = None,
-             labeller: Callable[[], int] | None = None
+             labeller: Callable[[], int] | None = None,
+             step_labeller: Callable[[], int] | None = None
              ) -> tuple[Trace, TorchMemoryTracer, object]:
     """Trace ``fn(*args)`` into a memory-event stream without running it.
 
@@ -295,12 +301,14 @@ def trace_fn(fn: Callable, *args, arg_kinds: Sequence[BlockKind] | None = None,
     on (a training step that calls ``torch.autograd.grad``); serving
     steps run under ``torch.no_grad()``. ``out_kind_fn(out)`` gives the
     kinds of the output's tensor leaves. ``labeller()`` labels each
-    event (``tracer.labels``). Returns ``(trace, tracer, out)`` where
+    event with its unit (``tracer.labels``), ``step_labeller()`` with its
+    step (``tracer.step_labels``). Returns ``(trace, tracer, out)`` where
     ``out`` holds the step's outputs as fake tensors."""
     leaves, spec = pytree.tree_flatten(args)
     mode = FakeTensorMode()
     tr = TorchMemoryTracer(phase=phase, iteration=iteration)
     tr.labeller = labeller
+    tr.step_labeller = step_labeller
     with mode:
         fakes = [_fake_like(t) if isinstance(t, torch.Tensor) else t
                  for t in leaves]

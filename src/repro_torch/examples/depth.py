@@ -2,12 +2,16 @@
 
 The estimator traces a deep stack at a few units (probes of 2, 3 and 4
 repeating units) and synthesizes the trace at the real depth exactly
-(``core/depth.py``); this prints that estimate beside the one made from
-the trace of every layer, with each one's source and seconds, on the
-CPU at smoke width:
+(``core/depth.py``), and a long step loop inside a layer (the sLSTM's,
+Mamba's) at a few steps, its trace at the real step count synthesized
+the same way (``core/loops.py``); this prints that estimate beside the
+one made from the trace of every layer and every step, with each one's
+source and seconds, on the CPU at smoke width:
 
   PYTHONPATH=src python -m repro_torch.examples.depth --arch qwen3-32b \\
       --n-layers 32
+  PYTHONPATH=src python -m repro_torch.examples.depth --arch xlstm-1.3b \\
+      --n-layers 8 --seq 64
 
 Exits 1 when the two estimates differ by a byte.
 """
@@ -20,7 +24,9 @@ import time
 from ..configs import get_smoke
 from ..configs.base import smoke_shape
 from ..configs.registry import input_specs
+from ..core.depth import summary
 from ..core.estimator import XMemEstimator, trace_fwd_in_full
+from ..core.loops import note
 from ..models import model as M
 from ..train import TrainPolicy, make_estimator_hooks
 
@@ -54,7 +60,7 @@ def main(argv=None) -> int:
           f"{args.batch} x {args.seq}")
     print(f"  composed: {composed.peak_bytes:>14,d} B (tensors "
           f"{composed.peak_tensor_bytes:,d}), source {d.get('source')}, "
-          f"{traced} units traced, {t1 - t0:.2f} s")
+          f"{traced} units traced{note(summary(d))}, {t1 - t0:.2f} s")
     print(f"  full    : {full.peak_bytes:>14,d} B (tensors "
           f"{full.peak_tensor_bytes:,d}), {units} units traced, "
           f"{t2 - t1:.2f} s")

@@ -47,6 +47,7 @@ from ..configs.base import ShapeSpec, smoke_shape
 from ..configs.registry import input_specs
 from ..core.baselines.directprobe import measured_training
 from ..core.estimator import XMemEstimator
+from ..core.loops import note as loops_note
 from ..models import model as M
 from ..train import (SyntheticDataset, TrainPolicy, TrainRun,
                      make_estimator_hooks, run_steps)
@@ -319,7 +320,7 @@ def main(argv=None) -> int:
                                    candidates, service=service)
     for c in gate["candidates"]:
         trace = "".join(f", trace {d['source']}: {d['units_traced']} of "
-                        f"{d['units']} units traced"
+                        f"{d['units']} units traced{loops_note(d)}"
                         for d in c.get("depth", ()))
         print(f"[xmem] batch {c['batch']}: estimate "
               f"{c['estimate'] / 2**20:.1f} MiB (tensors "

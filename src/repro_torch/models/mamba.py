@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import MambaConfig
 from .layers import normal_init
+from .steps import stack_steps, step_range
 
 
 def mamba_params(gen, d_model: int, cfg: MambaConfig, dtype, *, device,
@@ -98,12 +99,13 @@ def _scan_chunk(h, A, xc, dtc, Bc, Cc):
     Bc = Bc[:, :, None, :]                       # [B, ch, 1, N]
     Cc = Cc[:, :, None, :]
     xc = xc.float()[..., None]                   # [B, ch, d_inner, 1]
+    T = dtc.shape[1]
     ys = []
-    for t in range(dtc.shape[1]):
+    for t in step_range(T):
         dtt = dtc[:, t]
         h = torch.exp(dtt * A) * h + dtt * Bc[:, t] * xc[:, t]
         ys.append((h * Cc[:, t]).sum(-1))
-    return h, torch.stack(ys, dim=1)
+    return h, stack_steps(ys, T, dim=1)
 
 
 def mamba_block(x, p, cfg: MambaConfig):

@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import XLSTMConfig
 from .layers import normal_init, rms_norm
+from .steps import cat_steps, stack_steps, step_range
 
 _SLSTM_GATES = ("z", "i", "f", "o")
 
@@ -170,15 +171,17 @@ def mlstm_chunkwise(q, k, v, i_pre, f_pre, state=None, chunk: int = 256):
         C, n, m = state
     causal = torch.ones((ch, ch), dtype=torch.bool, device=q.device).tril()
     train = _training(qp, kp, vp, ip, fp, C, n, m)
+    T = Sp // ch
     hs = []
-    for c0 in range(0, Sp, ch):
+    for t in step_range(T):
+        c0 = t * ch
         args = (C, n, m, qp[:, :, c0:c0 + ch], kp[:, :, c0:c0 + ch],
                 vp[:, :, c0:c0 + ch], ip[..., c0:c0 + ch],
                 fp[..., c0:c0 + ch], causal)
         C, n, m, h = _ckpt(_mlstm_chunk, *args) if train \
             else _mlstm_chunk(*args)
         hs.append(h)
-    h = hs[0] if len(hs) == 1 else torch.cat(hs, dim=2)
+    h = hs[0] if T == 1 else cat_steps(hs, T, dim=2)
     return h.transpose(1, 2)[:, :S], (C, n, m)   # a view
 
 
@@ -282,8 +285,9 @@ def _slstm_chunk(h, c, n, m, xc, W, bias, R, pad: int):
     pre = pre.flatten(-2)
     if pad:                        # zero pre-activations, as the reference
         pre = F.pad(pre, (0, 0, 0, 0, 0, 0, 0, pad))
+    T = pre.shape[0]
     hs = []
-    for t in range(pre.shape[0]):
+    for t in step_range(T):
         gz, gi, gf, go = torch.baddbmm(pre[t].transpose(0, 1), h, R
                                        ).unflatten(-1, (4, -1)).unbind(-2)
         z = torch.tanh(gz)
@@ -296,7 +300,7 @@ def _slstm_chunk(h, c, n, m, xc, W, bias, R, pad: int):
         n = torch.addcmul(inp, n, decay)
         h = o * c / n.clamp_min(1e-6)
         hs.append(h)
-    return h, c, n, m, torch.stack(hs)
+    return h, c, n, m, stack_steps(hs, T)
 
 
 def slstm_block(x, p, n_heads: int, chunk: int = 256, state=None):
