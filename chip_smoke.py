@@ -18,15 +18,23 @@ non-zero:
    trace whose sLSTM step loops ran 6 and 7 steps in its probes
    (``core/loops.py``), beside the estimates from the full traces,
    equal to the byte, each with its wall and CPU seconds split between
-   the trace and the replay; then qwen3-32b (64 layers, batch 8),
-   musicgen-medium (48, batch 32), phi3.5-moe (32, batch 8) and
-   xlstm-1.3b (48, batch 16) at their published depths: estimate,
+   the trace (the loops' probes and synthesis apart) and the replay;
+   then qwen3-32b (64 layers, batch 8), musicgen-medium (48, batch 32),
+   phi3.5-moe (32, batch 8) and xlstm-1.3b (48, batch 16) at their
+   published depths, and qwen3-32b's 4 layers at 16,384 and 32,768
+   positions (batch 1), whose chunked attention's 32 (64) query chunks
+   over 16 (32) key chunks a layer compose at two levels: estimate,
    source, seconds, and admit or reject at the serving capacity, and
-   xlstm-1.3b's prefill at 48 layers (batch 256); its line is printed
-   when the training jobs end. Every estimate below whose step is
-   deeper than its probes (9 units), or has long step loops (the
-   sLSTM's, Mamba's), comes from a composed trace, to the byte the full
-   trace's;
+   xlstm-1.3b's prefill at 48 layers (batch 256);
+   its line is printed when the training jobs end. Every estimate below
+   whose step is deeper than its probes (9 units), or has loops of 14
+   or more bodies (the sLSTM's and Mamba's chunks and steps, chunked
+   attention's query and key chunks), comes from a composed trace, to
+   the byte the full trace's;
+0b. serving_ahead — in a process of its own on this process's cores,
+   from the start (``--serving-ahead STORE``, no card, one thread): the
+   xlstm-1.3b and 32k serving gates' candidates (``SERVING_AHEAD``)
+   traced into a trace store, which those gates read from disk;
 1. device  — the card (``nvidia-smi`` name and power limit), torch/CUDA;
 2. build   — every kernel under ``src/repro_torch/csrc`` with nvcc;
 3. kernels — each kernel against its plain PyTorch version on the card
@@ -90,6 +98,16 @@ non-zero:
    ``ssm_recurrent_parity``: one mLSTM and one sLSTM block at full
    width in f32 on the card, the chunked forms against the one-step
    decode recurrence;
+8c. hybrid_long_main — jamba's cut again with 32,768-token prompts into
+   a cache of 32,784 positions (``hybrid_long_*``), 16 greedy tokens,
+   under an allocator cap ``LONG_HEADROOM`` under the card's capacity
+   (``allocator_cap``), at which its gate decides: each Mamba layer's
+   prefill is 128 chunks of 256 steps, the sm90 kernel launches at
+   ``(B, 64, 8, 32768, 128)`` and is held against the plain version
+   there (one sequence's one head at a time), and the kernel path's
+   logits against the chunked attention's (dense scores at this length
+   do not fit); no request alignment, profile or recurrent parity (the
+   2048-token path has them);
 9. train   — in a child process of its own (``--train dense ROWS``,
    which writes its baselines' row to the file ROWS), as a training job
    runs: qwen3-32b at full width, depth cut to 4 layers,
@@ -192,6 +210,7 @@ CUDA device is present.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -222,11 +241,11 @@ HYBRID_ARCH = "jamba-1.5-large-398b"
 # over the card's 85 GB: the card serves a period of attn_every=2, one
 # attention layer (dense MLP) and one Mamba layer (MoE), at full width
 HYBRID_PERIOD = 2
-# xlstm-1.3b serving depth, in whole periods of 8. Traced in full, one
-# prefill estimate at 48 layers took 58.0 and 81.6 s of the chip
-# machine's CPU at seq 2048; with its step loops composed
-# (core/loops.py) about 21 s, but at 48 layers the path took 190-205 s
-# of the run, which ended at 1,096 and 1,176 s (PERF.md section 6): 32
+# xlstm-1.3b serving depth, in whole periods of 8. One prefill estimate
+# at 48 layers takes about 21 s of the chip machine's CPU with its loops
+# composed (core/loops.py; 58.0-81.6 s traced in full), but at 48 layers
+# the path took 190-205 s of the run, its serving on the card most of
+# it, and the run ended at 1,096 and 1,176 s (PERF.md section 6): 32
 # keeps the run under 1,150 s
 SSM_SERVING_LAYERS = 32
 # serving paths: arch -> (B, H, Hkv, S, d) of its prefill attention, and
@@ -242,6 +261,36 @@ FULL_DEPTH_SERVING = {VLM_ARCH: ("vlm_", 2320, 2304),
 # the recurrent families' serving paths: arch -> (phase prefix, depth)
 RECURRENT_SERVING = {HYBRID_ARCH: ("hybrid_", HYBRID_PERIOD),
                      SSM_ARCH: ("ssm_", SSM_SERVING_LAYERS)}
+# the long-sequence serving path (PREFILL_32K's prompts,
+# configs/base.py): jamba's cut with 32,768-token prompts into a cache
+# of LONG_MAX_LEN positions, 16 greedy tokens; each Mamba layer's prefill
+# is 128 chunks of 256 steps, which the gate's traces compose at two
+# levels (core/loops.py). Its candidates start at the first batch the
+# CPU gate rejects (PERF.md section 6)
+LONG_PROMPT = 32768
+LONG_MAX_LEN = LONG_PROMPT + DECODE_TOKENS
+LONG_SERVING = {HYBRID_ARCH: ("hybrid_long_", HYBRID_PERIOD, (4, 2, 1))}
+# the long path runs with the caching allocator capped
+# (``set_per_process_memory_fraction``) this far under the capacity it
+# reads, and gates at the cap: its admitted batch's prefill reserves to
+# within megabytes of the capacity (PERF.md section 6), and the kernel
+# modules the path loads lazily take some of them after the gate has
+# read it. Under the cap the allocator releases its cache and retries
+# by its own count, as the simulation does
+LONG_HEADROOM = 1 << 30
+# a plain attention over this many positions runs one sequence and one
+# head at a time: a head's f32 scores at 32,768 positions are 4.3 GB
+PLAIN_HEAD_AT_ONCE = 8192
+# serving gates traced ahead (``--serving-ahead STORE``: a process of its
+# own on this process's cores from the start, no card, one thread) into a
+# trace store the gates then read from disk: (phase prefix, the
+# candidates its gate tried in earlier runs, the last admitted). A
+# candidate the gate tries beyond them is traced then, as before; the
+# bytes are the same either way. xlstm-1.3b's gate traced for 42 s of
+# the serving half; the cheaper gates before it run in this process, so
+# that it need not wait for the tracing at the first of them (PERF.md
+# section 5)
+SERVING_AHEAD = {"ssm_": (256,), "hybrid_long_": (4, 2)}
 WIDE_CANDIDATES = (256, 128, 64, 32, 16, 8, 4, 2, 1)
 GEMMA_SHAPE = (2, 8, 4, 4096, 256)            # gemma3-4b, head dim 256
 GEMMA_WINDOW = 1024                           # its local layers' window
@@ -263,11 +312,10 @@ PLAIN_BATCH = 8
 # left the run no room for the fleet phase (1,185.6 s with it; PERF.md
 # section 5), and at 16 the CPU gate CLI still rejects 64 (batch 64 at 2
 # microbatches: 50,992.0 MiB) and admits 32. xLSTM trains its least
-# depth, one period of 8 (too few to compose by depth): traced in full,
-# one estimate took about 250 s beside the other children (its sLSTM's
-# 4096 steps, three times forward and once backward under the trace);
-# its step loops compose now (core/loops.py, PERF.md section 6); its
-# gate starts at 16, which it admitted after rejecting 32 (PERF.md)
+# depth, one period of 8 (too few to compose by depth): one estimate
+# took about 50 s beside the other children with its sLSTM's 16 chunks
+# of 256 steps composed (core/loops.py; 204 s in full, PERF.md section
+# 6); its gate starts at 16, which it admitted after rejecting 32
 TRAIN_JOBS = {"dense": ("qwen3-32b", 4, (8, 4, 2, 1)),
               "dense_sgd": ("qwen3-32b", 4, (8, 4, 2, 1)),
               "moe": (MOE_ARCH, 3, (8, 4, 2, 1)),
@@ -275,19 +323,36 @@ TRAIN_JOBS = {"dense": ("qwen3-32b", 4, (8, 4, 2, 1)),
               "audio": (AUDIO_ARCH, 16, (64, 32, 16, 8, 4, 2, 1)),
               "ssm": (SSM_ARCH, 8, (16, 8, 4, 2, 1)),
               "hybrid": (HYBRID_ARCH, HYBRID_PERIOD, (1,))}
+TRAIN_SEQ = 4096            # TRAIN_4K's sequence length
+# the dense job at 16,384 positions (``dense_long``), 32 query chunks
+# over 16 key chunks a layer: estimated in ``depth_compose``, not run.
+# On the card (scripts/long_paths.py, PERF.md section 6) its gate
+# rejects 2 and admits 1, whose 3 steps take 53 s and its gate 25 s
+# after 170 s of traces ahead: the run would end near 1,200 s
+LONG_TRAIN_SEQ = 16384
 # ``depth_compose`` (a process of its own, ``--depth-compose OUT``): the
 # training jobs the card runs that compose, each at its gate's admitted
 # batch (internvl2-1b rejects 16 and admits 8, musicgen-medium at 16
 # layers rejects 64 and admits 32: deeper than the depth probes;
-# xlstm-1.3b at 8 layers rejects 32 and admits 16: its sLSTM's step
-# loops), estimated from the composed trace and from the full one, to
-# the byte; and published depths no job runs: arch -> (the job whose
-# policy it takes, batch), with xlstm-1.3b's 48 layers, whose 6 periods
-# are too few to compose by depth but whose step loops compose, and its
-# prefill there: (batch, prompt positions), into a MAX_LEN cache
-DEPTH_FULL_JOBS = {"vlm": 8, "audio": 32, "ssm": 16}
-DEPTH_PUBLISHED = {"qwen3-32b": ("dense", 8), AUDIO_ARCH: ("audio", 32),
-                   MOE_ARCH: ("moe", 8), SSM_ARCH: ("ssm", 16)}
+# xlstm-1.3b at 8 layers rejects 32 and admits 16: its sLSTM's loops):
+# (job, batch, sequence), estimated from the composed trace and from the
+# full one, to the byte; and estimates no job runs: (arch, depth or None
+# for the published one, the job whose policy it takes, batch,
+# sequence), with xlstm-1.3b's 48 layers, whose 6 periods are too few to
+# compose by depth but whose loops compose, and qwen3-32b's 4 layers at
+# LONG_TRAIN_SEQ and twice it, batch 1 (32 and 64 query chunks over 16
+# and 32 key chunks, nested; at LONG_TRAIN_SEQ its trace in full, 224 s
+# of the depth child's CPU, took the run past 1,150 s: PERF.md section
+# 6); and xlstm-1.3b's prefill at 48 layers: (batch, prompt positions),
+# into a MAX_LEN cache
+DEPTH_FULL_JOBS = (("vlm", 8, TRAIN_SEQ), ("audio", 32, TRAIN_SEQ),
+                   ("ssm", 16, TRAIN_SEQ))
+DEPTH_ESTIMATES = (("qwen3-32b", None, "dense", 8, TRAIN_SEQ),
+                   (AUDIO_ARCH, None, "audio", 32, TRAIN_SEQ),
+                   (MOE_ARCH, None, "moe", 8, TRAIN_SEQ),
+                   (SSM_ARCH, None, "ssm", 16, TRAIN_SEQ),
+                   ("qwen3-32b", 4, "dense", 1, LONG_TRAIN_SEQ),
+                   ("qwen3-32b", 4, "dense", 1, 2 * LONG_TRAIN_SEQ))
 LOOPS_PREFILL = (256, 2048)
 # the xlstm-1.3b rows, the longest (one estimate at 48 layers is about 7
 # minutes of the child's CPU), run in a process of the child's own
@@ -311,7 +376,6 @@ GATE_ONLY = ("hybrid",)
 # step loop makes about 1.4 million requests in 3 steps at 8 layers, and
 # recording each one's stack takes longer than the run may
 UNRECORDED = ("ssm",)
-TRAIN_SEQ = 4096            # TRAIN_4K's sequence length
 TRAIN_STEPS = 3             # the estimator composes 3 iterations
 TRACED_AHEAD = 2            # candidates a training job traces before its turn
 # the dense job's batch sweep, and the batches it traces before its turn
@@ -467,6 +531,8 @@ def bound(bhd: int, s: int, window, tensors) -> dict:
 def attended_pairs(sq: int, sk: int, causal: bool, window) -> int:
     """(query, key) pairs the mask lets through, per head."""
     import numpy as np
+    if causal and window is None and sq == sk:
+        return sq * (sq + 1) // 2
     q = np.arange(sq)[:, None]
     k = np.arange(sk)[None, :]
     ok = np.ones((sq, sk), dtype=bool)
@@ -669,7 +735,8 @@ def serving_shape_rows(path: str, shape, kernels, rand, sdpa):
     wrapper, which pads it (its row is the kernel ``route`` picks for
     the padded head dim, timed with the padding); the bound counts the
     work at the true head dim. The plain version runs over
-    ``PLAIN_BATCH`` sequences at a time."""
+    ``PLAIN_BATCH`` sequences at a time, or, past ``PLAIN_HEAD_AT_ONCE``
+    positions, over one sequence's one head."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -691,12 +758,31 @@ def serving_shape_rows(path: str, shape, kernels, rand, sdpa):
         return fa.launch(kernel, qt, kt, vt, causal=True)
 
     def plain():
+        if S > PLAIN_HEAD_AT_ONCE:
+            out = torch.empty_like(qt)
+            G = H // Hkv
+            for b in range(B):
+                for h in range(H):
+                    g = h // G
+                    out[b:b + 1, h:h + 1] = attention_ref(
+                        qt[b:b + 1, h:h + 1], kt[b:b + 1, g:g + 1],
+                        vt[b:b + 1, g:g + 1], causal=True)
+            return out
         outs = [attention_ref(qt[i:i + PLAIN_BATCH], kt[i:i + PLAIN_BATCH],
                               vt[i:i + PLAIN_BATCH], causal=True)
                 for i in range(0, B, PLAIN_BATCH)]
         return outs[0] if len(outs) == 1 else torch.cat(outs)
-    ref = plain()
-    plain_ms = cuda_ms(plain, reps=2)
+    if S <= PLAIN_HEAD_AT_ONCE:
+        ref = plain()
+        plain_ms = cuda_ms(plain, reps=2)
+    else:                       # seconds a call: the one that makes ``ref``
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = plain()
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
     errs, cases = {}, []
     for kernel in kernels:
         out = run(kernel)
@@ -735,32 +821,41 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
                   n_layers: int | None = N_LAYERS, max_len: int = MAX_LEN,
                   prompt_len: int = PROMPT_LEN, candidates=(8, 4, 2, 1),
                   kernel_rows: bool = False,
-                  serving_sweep: bool = False, after_serve_mix=None) -> None:
+                  serving_sweep: bool = False, after_serve_mix=None,
+                  long: bool = False, capacity: int | None = None,
+                  store_dir: str | None = None) -> None:
     """The serving main path of ``arch`` at full width, ``n_layers``
     deep (``None``: the config's depth), prompts of ``prompt_len``
     positions into a cache of ``max_len``, the gate over
     ``candidates``; its phases' names start with ``prefix``. With
     ``kernel_rows`` the path's kernel is first held against the plain
     version at the admitted batch's prefill shape (``kernel`` phase),
-    and its rows join ``rows``; with ``serving_sweep`` the served
-    decode is set beside the request-driven estimate's knob grid
+    and its rows join ``rows`` (their ``path``: ``arch``, and the
+    prompt length on a ``long`` path); with ``serving_sweep`` the
+    served decode is set beside the request-driven estimate's knob grid
     (``phase_serving_sweep``), then the request-driven gate
     (``phase_serve_mix``), after which ``after_serve_mix`` is called
-    with the capacity the gates used."""
+    with the capacity the gates used. A ``long`` path skips the
+    request alignment, the profile and the recurrent parity (its
+    2048-token path runs them), and holds the kernel path's logits to
+    the chunked attention's: dense scores at its length do not fit. The
+    gates decide at ``capacity`` (default: what the card can hold), over
+    the trace store ``store_dir`` when given (``SERVING_AHEAD``)."""
     import torch
-    from repro_torch.core.estimator import XMemEstimator
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve as srv
     from repro_torch.models import model as M
     from repro_torch.train.train_step import make_prefill_step
 
     cfg = path_config(arch, n_layers, impl="flash")
-    capacity = srv.device_capacity()
+    path = f"{arch} at {prompt_len}" if long else arch
+    if capacity is None:
+        capacity = srv.device_capacity()
     t0 = time.perf_counter()
     # decided through the admission service (its exact rung: the
     # estimator's replay at the capacity)
     batch, gate = srv.pick_batch(cfg, max_len, capacity,
-                                 candidates=candidates)
+                                 candidates=candidates, store_dir=store_dir)
     gate_s = time.perf_counter() - t0
     if batch is None:
         raise AssertionError(f"no batch fits: {gate['candidates']}")
@@ -769,7 +864,7 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
     # as the gate's are: near the ceiling the simulated allocator, as
     # the card's, frees its cached blocks and retries; ``phase_requests``
     # takes the prefill's trace from this estimator's cache
-    est = XMemEstimator.for_torch_gpu()
+    est = serving_estimator(store_dir)
     prefill_fn = srv.make_prefill_fn(cfg)
     cache_abs = M.init_cache(cfg, batch, max_len, device="meta")
     t0 = time.perf_counter()
@@ -779,7 +874,8 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
     pre_est_s = time.perf_counter() - t0
     dec_est = gate["decode"].report
     emit(f"{prefix}gate", config=cfg.name, n_layers=cfg.n_layers,
-         capacity=capacity, seconds=gate_s, prefill_estimate_seconds=pre_est_s,
+         capacity=capacity, seconds=gate_s,
+         prefill_estimate_seconds=pre_est_s,
          batch=batch,
          candidates=gate["candidates"],
          prefill_estimate=pre_est.peak_bytes,
@@ -795,7 +891,7 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
                                dtype=torch.float32).to(dtype)
         shape = (batch, cfg.n_heads, cfg.n_kv_heads, prompt_len, cfg.hd)
         got, cases, lim = serving_shape_rows(
-            arch, shape, (fa.route(cfg.dtype, cfg.hd),), rand,
+            path, shape, (fa.route(cfg.dtype, cfg.hd),), rand,
             torch.nn.functional.scaled_dot_product_attention)
         rows += got
         emit(f"{prefix}kernel", cases=cases,
@@ -810,7 +906,7 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
     launches = fa.launches
     by_kernel = dict(fa.launches_by_kernel)
     for row in rows:
-        if row["path"] == arch:
+        if row["path"] == path:
             row["launches"] = by_kernel[row["name"].rsplit("_", 1)[1]]
     want = attention_layers(cfg) * REQUESTS
     if launches != want or by_kernel["sm90"] != want:
@@ -879,20 +975,23 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
             after_serve_mix(capacity)
     del res
     torch.cuda.empty_cache()
-    phase_requests(cfg, params, batch, prefix, max_len, prompt_len, est,
-                   prefill_fn)
-    phase_profile(cfg, params, batch, prefix, prompt_len)
+    if not long:
+        phase_requests(cfg, params, batch, prefix, max_len, prompt_len, est,
+                       prefill_fn)
+        phase_profile(cfg, params, batch, prefix, prompt_len)
     if cfg.moe is not None:
         phase_experts(cfg, params, batch, prefix)
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid") and not long:
         phase_recurrent_parity(cfg, prefix)
     if not attention_layers(cfg):
         return
 
-    # the kernel path against the dense path at batch 1, same weights
-    # (the same argmax per codebook for audio)
+    # the kernel path against the dense path (the chunked one on a long
+    # path) at batch 1, same weights (the same argmax per codebook for
+    # audio)
+    against = "chunked" if long else "dense"
     dense = dataclasses.replace(
-        cfg, attention=dataclasses.replace(cfg.attention, impl="dense"))
+        cfg, attention=dataclasses.replace(cfg.attention, impl=against))
     prompt = srv.device_prompts(cfg, 1, prompt_len, seed=100)
     lf = make_prefill_step(cfg)(params, prompt).float()
     ld = make_prefill_step(dense)(params, prompt).float()
@@ -903,13 +1002,81 @@ def phase_serving(rows: list[dict], arch: str, prefix: str = "", *,
     # token over the flash path's (a flip needs a lead within twice the
     # largest logit difference)
     flips = (ld.gather(-1, top_d) - ld.gather(-1, top_f))[top_f != top_d]
-    emit(f"{prefix}parity", flash_vs_dense_rel=rel, tol=LOGITS_REL_TOL,
+    emit(f"{prefix}parity", against=against, flash_vs_dense_rel=rel,
+         tol=LOGITS_REL_TOL,
          same_argmax=same, max_abs_diff=(lf - ld).abs().max().item(),
          flip_leads=flips.tolist(),
          finite=bool(torch.isfinite(lf).all().item()),
          memory=device_memory())
     if not rel < LOGITS_REL_TOL:
-        raise AssertionError(f"flash vs dense logits: rel {rel}")
+        raise AssertionError(f"flash vs {against} logits: rel {rel}")
+
+
+def serving_estimator(store_dir: str | None):
+    """The estimator of a serving path's prefill estimate: over the
+    trace store ``store_dir`` when given."""
+    from repro_torch.core.cache import TraceCache
+    from repro_torch.core.estimator import XMemEstimator
+    from repro_torch.service import TraceStore
+    if store_dir is None:
+        return XMemEstimator.for_torch_gpu()
+    return XMemEstimator.for_torch_gpu(
+        trace_cache=TraceCache(store=TraceStore(store_dir)))
+
+
+def serving_paths() -> dict:
+    """Each serving path after qwen3-32b's and phi3.5-moe's: phase
+    prefix -> (arch, depth, max_len, prompt length)."""
+    out = {}
+    for arch, (prefix, max_len, prompt_len) in FULL_DEPTH_SERVING.items():
+        out[prefix] = (arch, None, max_len, prompt_len)
+    for arch, (prefix, n_layers) in RECURRENT_SERVING.items():
+        out[prefix] = (arch, n_layers, MAX_LEN, PROMPT_LEN)
+    for arch, (prefix, n_layers, _c) in LONG_SERVING.items():
+        out[prefix] = (arch, n_layers, LONG_MAX_LEN, LONG_PROMPT)
+    return out
+
+
+def phase_serving_ahead(store_dir: str) -> None:
+    """The serving gates of ``SERVING_AHEAD`` traced into the trace
+    store ``store_dir``, in the order the paths run: each candidate's
+    decode and prefill through the admission service over the store (at
+    no capacity: the traces are the same at any), then the admitted
+    batch's prefill at the path's prompt length, as ``phase_serving``
+    estimates it. Uses no card."""
+    import torch
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import model as M
+
+    torch.set_num_threads(1)
+    paths = serving_paths()
+    for prefix, candidates in SERVING_AHEAD.items():
+        arch, n_layers, max_len, prompt_len = paths[prefix]
+        cfg = path_config(arch, n_layers, impl="flash")
+        for b in candidates:
+            srv.pick_batch(cfg, max_len, 1 << 62, candidates=(b,),
+                           store_dir=store_dir)
+        b = candidates[-1]
+        serving_estimator(store_dir).estimate_serving(
+            srv.make_prefill_fn(cfg), M.abstract_params(cfg),
+            M.init_cache(cfg, b, max_len, device="meta"),
+            srv.prompt_specs(cfg, b, prompt_len))
+
+
+@contextlib.contextmanager
+def allocator_cap(headroom: int):
+    """The caching allocator capped ``headroom`` under the card's
+    capacity (``set_per_process_memory_fraction``), yielding the cap;
+    uncapped again on exit."""
+    import torch
+    from repro_torch.launch import serve as srv
+    total = torch.cuda.get_device_properties(0).total_memory
+    fraction = (srv.device_capacity() - headroom) / total
+    torch.cuda.set_per_process_memory_fraction(fraction)
+    try:
+        yield int(fraction * total)     # the allocator's own count
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
 
 
 def phase_serving_sweep(cfg, batch: int, max_len: int, prompt_len: int,
@@ -2341,27 +2508,29 @@ def phase_plan_offers(cfg, policy, service, capacity: int, gate: dict,
 
 
 def phase_depth_compose(out_path: str, loops: bool = False) -> None:
-    """Depth and step-loop composition at full width, in a process of
-    its own that uses no card: for each job of ``DEPTH_FULL_JOBS``, the
+    """Depth and loop composition at full width, in a process of its
+    own that uses no card: for each job of ``DEPTH_FULL_JOBS``, the
     estimate from its composed trace (``core/depth.py``: probes of 2, 3
-    and 4 units; ``core/loops.py``: each long step loop run 6 and 7
-    steps) beside the estimate from the full trace, each with its wall
-    and CPU seconds, split between the trace and the replay; then each
-    config of ``DEPTH_PUBLISHED`` at its published depth: its estimate,
-    source and seconds, and, once ``go CAPACITY`` arrives on stdin, the
-    decision replayed at that capacity (the parent's serving capacity;
-    the traces from the cache): admit or reject; and xlstm-1.3b's
-    prefill at its published depth (``LOOPS_PREFILL``). The rows of
-    ``LOOP_ARCHS`` run in a process of their own (``loops``), started
-    first, which reads the same ``go CAPACITY`` line and whose rows join
-    this one's. Writes one JSON object to ``out_path``; fails if any
-    composed estimate differs from its full one by a byte, or any trace
-    was not composed where its stack is deeper than the depth probes or
-    its step has long loops."""
+    and 4 units; ``core/loops.py``: each long loop run 6 and 7 steps, a
+    loop nested in a long loop's steps too) beside the estimate from the
+    full trace, each with its wall and CPU seconds, split between the
+    trace (its probes and synthesis apart) and the replay; then each
+    estimate of ``DEPTH_ESTIMATES``: its bytes, source and seconds, and,
+    once ``go CAPACITY`` arrives on stdin, the decision replayed at that
+    capacity (the parent's serving capacity; the traces from the cache):
+    admit or reject; and xlstm-1.3b's prefill at its published depth
+    (``LOOPS_PREFILL``). The rows of ``LOOP_ARCHS`` run in a process of
+    their own (``loops``), started first, which reads the same ``go
+    CAPACITY`` line and whose rows join this one's. Writes one JSON
+    object to ``out_path``; fails if any composed estimate differs from
+    its full one by a byte, or any trace was not composed where its
+    stack is deeper than the depth probes or its step has a loop of
+    ``MIN_STEPS`` or more bodies."""
     from repro_torch.configs.base import smoke_shape
     from repro_torch.configs.registry import input_specs
     from repro_torch.core.depth import PROBE_UNITS
     from repro_torch.core.estimator import XMemEstimator, trace_fwd_in_full
+    from repro_torch.core.loops import MIN_STEPS
     from repro_torch.launch import serve as srv
     from repro_torch.models import model as M
     from repro_torch.train import make_estimator_hooks
@@ -2371,27 +2540,36 @@ def phase_depth_compose(out_path: str, loops: bool = False) -> None:
         out = fn()
         return out, time.perf_counter() - w0, time.process_time() - c0
 
-    def job_args(arch, n_layers, job, batch):
+    def job_args(arch, n_layers, job, batch, seq):
         cfg = path_config(arch, n_layers)
         fwd, upd, init = make_estimator_hooks(cfg, train_policy(job))
         return cfg, (fwd, M.abstract_params(cfg),
-                     input_specs(cfg, smoke_shape(TRAIN_SEQ, batch)),
+                     input_specs(cfg, smoke_shape(seq, batch)),
                      upd, init)
 
     def row(rep) -> dict:
+        loops = rep.depth.get("loops", {})
         return {"estimate": rep.peak_bytes, "tensor": rep.peak_tensor_bytes,
                 "persistent": rep.persistent_bytes, "oom": rep.oom,
-                "depth": rep.depth}
+                "depth": rep.depth,
+                # the loops' probes and synthesis, inside the trace
+                "probe_s": loops.get("probe_s"),
+                "synth_s": loops.get("synth_s")}
 
-    def composed(cfg, rep) -> bool:
+    def composed(cfg, seq, rep) -> bool:
         """Composed where it should be: by depth past the probes'
-        units, by steps where the step has long loops."""
+        units, by steps where the step has a loop of ``MIN_STEPS`` or
+        more bodies (the recurrent blocks' loops; chunked attention's
+        query and key loops)."""
         d = rep.depth
         if M.repeat_unit(cfg)[0] > sum(PROBE_UNITS) \
                 and d.get("source") != "composed":
             return False
-        return cfg.family not in ("ssm", "hybrid") or d.get(
-            "loops", {}).get("source") == "composed"
+        att = cfg.attention
+        long_attention = cfg.family != "ssm" and seq > att.dense_threshold \
+            and -(-seq // min(att.chunk_q, att.chunk_kv)) >= MIN_STEPS
+        return not (cfg.family in ("ssm", "hybrid") or long_attention) \
+            or d.get("loops", {}).get("source") == "composed"
 
     def split(trace, replay) -> dict:
         """An estimate's trace and replay, each timed (wall, CPU s), and
@@ -2416,17 +2594,17 @@ def phase_depth_compose(out_path: str, loops: bool = False) -> None:
             text=True)
     try:
         bad = []
-        ahead = {}
-        for arch, (job, batch) in DEPTH_PUBLISHED.items():
+        ahead = []
+        for arch, n_layers, job, batch, seq in DEPTH_ESTIMATES:
             if not mine(arch):
                 continue
-            cfg, args = job_args(arch, None, job, batch)
+            cfg, args = job_args(arch, n_layers, job, batch, seq)
             fwd, params, specs, upd, init = args
             est = XMemEstimator.for_torch_gpu()
             rep, t = split(
                 lambda: est.trace_phases(fwd, params, specs, upd, init),
                 lambda phases: est.estimate_from_phases(*phases))
-            ahead[arch] = (cfg, job, batch, args, est, rep, t)
+            ahead.append((cfg, job, batch, seq, args, est, rep, t))
         prefill = None
         if loops:
             # xlstm-1.3b's serving estimate at its published depth: the
@@ -2448,15 +2626,15 @@ def phase_depth_compose(out_path: str, loops: bool = False) -> None:
                        "cpu_s": first_cpu,
                        "trace_s": first_s - replay_s, "replay_s": replay_s,
                        "replay_cpu_s": replay_cpu, "events": first.num_events}
-            if not composed(cfg, first):
+            if not composed(cfg, prompt, first):
                 bad.append(f"{cfg.name} prefill")
         full_rows = []
-        for job, batch in DEPTH_FULL_JOBS.items():
+        for job, batch, seq in DEPTH_FULL_JOBS:
             arch, n_layers, _ = TRAIN_JOBS[job]
             if not mine(arch):
                 continue
             cfg, (fwd, params, specs, upd, init) = job_args(
-                arch, n_layers, job, batch)
+                arch, n_layers, job, batch, seq)
             est = XMemEstimator.for_torch_gpu()
             comp, comp_t = split(
                 lambda: est.trace_phases(fwd, params, specs, upd, init),
@@ -2471,11 +2649,12 @@ def phase_depth_compose(out_path: str, loops: bool = False) -> None:
                 "peak_bytes", "peak_tensor_bytes", "persistent_bytes", "oom"))
             full_rows.append({"job": job, "config": cfg.name,
                               "n_layers": cfg.n_layers, "batch": batch,
+                              "seq_len": seq,
                               "composed": {**row(comp), **comp_t},
                               "full": {**row(full), **full_t},
                               "events": comp.num_events,
                               "equal_bytes": equal})
-            if not equal or not composed(cfg, comp):
+            if not equal or not composed(cfg, seq, comp):
                 bad.append(job)
         line = sys.stdin.readline()
         if child is not None:
@@ -2486,7 +2665,7 @@ def phase_depth_compose(out_path: str, loops: bool = False) -> None:
             raise AssertionError("depth_compose: no capacity")
         capacity = int(capacity)
         published = []
-        for arch, (cfg, job, batch, args, est, rep, t) in ahead.items():
+        for cfg, job, batch, seq, args, est, rep, t in ahead:
             fwd, params, specs, upd, init = args
             # an unbounded replay whose peak fits never asks for more than
             # the capacity, so a replay at the capacity is the same one: it
@@ -2499,12 +2678,12 @@ def phase_depth_compose(out_path: str, loops: bool = False) -> None:
                     capacity=capacity))
             published.append({
                 "config": cfg.name, "n_layers": cfg.n_layers, "job": job,
-                "batch": batch, "seq_len": TRAIN_SEQ, **row(rep), **t,
+                "batch": batch, "seq_len": seq, **row(rep), **t,
                 "events": rep.num_events,
                 "admit": not at.oom and at.peak_bytes <= capacity,
                 "decide_seconds": decide_s})
-            if not composed(cfg, rep):
-                bad.append(arch)
+            if not composed(cfg, seq, rep):
+                bad.append(f"{cfg.name} {cfg.n_layers} layers at {seq}")
         if child is not None:
             if child.wait(timeout=900) != 0:
                 raise AssertionError(f"depth_compose: its loops process "
@@ -3170,6 +3349,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--serve-plan"] and len(sys.argv) == 3:
         phase_serve_plan(sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--serving-ahead"] and len(sys.argv) == 3:
+        phase_serving_ahead(sys.argv[2])
+        return 0
     if sys.argv[1:2] == ["--depth-compose"] and len(sys.argv) == 3:
         phase_depth_compose(sys.argv[2])
         return 0
@@ -3206,6 +3388,23 @@ def main() -> int:
          str(serve_plan_out)], stdin=subprocess.PIPE, text=True)
     if mine:
         os.sched_setaffinity(serve_plan.pid, theirs)
+    # the later serving paths' gates trace ahead on this process's cores
+    # (it drives the card from one of them) into a store the gates read
+    serving_store = str(rows_dir / "serving_store")
+    ahead = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--serving-ahead",
+         serving_store])
+    if mine:
+        os.sched_setaffinity(ahead.pid, mine)
+
+    def store_for(prefix: str):
+        """The serving store, once the process tracing into it ends."""
+        if prefix not in SERVING_AHEAD:
+            return None
+        if ahead.wait(timeout=600) != 0:
+            raise AssertionError(f"serving_ahead failed: exit "
+                                 f"{ahead.returncode}")
+        return serving_store
 
     # the depth composition at full width needs no card either: a process
     # of its own beside the training jobs, from the start
@@ -3239,11 +3438,18 @@ def main() -> int:
         for arch, (prefix, max_len, prompt_len) in FULL_DEPTH_SERVING.items():
             phase_serving(rows, arch, prefix, n_layers=None, max_len=max_len,
                           prompt_len=prompt_len, candidates=WIDE_CANDIDATES,
-                          kernel_rows=True)
+                          kernel_rows=True, store_dir=store_for(prefix))
         for arch, (prefix, n_layers) in RECURRENT_SERVING.items():
             phase_serving(rows, arch, prefix, n_layers=n_layers,
                           candidates=WIDE_CANDIDATES,
-                          kernel_rows=arch == HYBRID_ARCH)
+                          kernel_rows=arch == HYBRID_ARCH,
+                          store_dir=store_for(prefix))
+        for arch, (prefix, n_layers, cands) in LONG_SERVING.items():
+            with allocator_cap(LONG_HEADROOM) as capacity:
+                phase_serving(rows, arch, prefix, n_layers=n_layers,
+                              max_len=LONG_MAX_LEN, prompt_len=LONG_PROMPT,
+                              candidates=cands, kernel_rows=True, long=True,
+                              capacity=capacity, store_dir=store_for(prefix))
         # this process keeps only its context and workspace on the card
         torch.cuda.empty_cache()
         if serve_plan.wait(timeout=600) != 0:
@@ -3266,7 +3472,7 @@ def main() -> int:
                           for job in TRAIN_JOBS if job not in GATE_ONLY},
                          info)
     finally:
-        for child in (*jobs.values(), serve_plan, depth):
+        for child in (*jobs.values(), serve_plan, depth, ahead):
             if child.poll() is None:
                 child.kill()
                 child.wait()

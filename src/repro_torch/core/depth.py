@@ -256,8 +256,9 @@ def _collapse_runs(items: list) -> list:
 class _Probe:
     """A probe trace taken apart: each segment instance's items as
     structure (what must match across probes), values (sizes and shapes,
-    which may move with the unit count) and labels (``extra``: another
-    labelling of the events, carried through a synthesis).
+    which may move with the unit count) and labels (``extra``: other
+    labellings of the events, one hashable value an event, carried
+    through a synthesis).
 
     A free names its block by where the alloc was. In a unit run, by
     candidates that the fit chooses between: the alloc's unit as a step
@@ -341,7 +342,6 @@ class _Probe:
                     out.extend(("Utail", g, n - 1 - tu, *nm) for nm in names)
             return tuple(out)
 
-        ex = None if extra is None else np.asarray(extra)
         instances: dict = {}
         for si, (key, u, s, e) in enumerate(segs):
             tkey = key if key[0] == "F" else (key[0], key[1],
@@ -357,7 +357,7 @@ class _Probe:
                     if ti is None or ti > i:
                         return None
                     struct.append((0, ops[c.op[i]], cands(si, ti)))
-                labs.append(None if ex is None else int(ex[i]))
+                labs.append(None if extra is None else extra[i])
             if key[0] == "F":
                 merged = _collapse_runs(list(zip(struct, labs)))
                 struct = [it for it, _l in merged]
@@ -812,12 +812,15 @@ def summary(info: dict) -> dict:
     real depth's ``units`` and the ``units_traced`` to make it, and,
     for a step with long loops, their composition (``loops``: its
     ``source``, the ``steps`` and the ``steps_traced``, ``why`` one fell
-    back)."""
+    back, and the ``levels`` when loops nest)."""
     out = {k: info.get(k) for k in ("source", "units", "units_traced")}
     loops = info.get("loops")
     if loops:
         out["loops"] = {k: loops[k] for k in ("source", "why", "steps",
                                               "steps_traced") if k in loops}
+        levels = len(loops.get("by_level", ()))
+        if levels > 1:
+            out["loops"]["levels"] = levels
     return out
 
 

@@ -2,16 +2,22 @@
 
 The estimator traces a deep stack at a few units (probes of 2, 3 and 4
 repeating units) and synthesizes the trace at the real depth exactly
-(``core/depth.py``), and a long step loop inside a layer (the sLSTM's,
-Mamba's) at a few steps, its trace at the real step count synthesized
-the same way (``core/loops.py``); this prints that estimate beside the
-one made from the trace of every layer and every step, with each one's
-source and seconds, on the CPU at smoke width:
+(``core/depth.py``), and a long loop inside a layer (the sLSTM's and
+Mamba's steps, and their chunks over the steps) at a few steps, its
+trace at the real step count synthesized the same way
+(``core/loops.py``); this prints that estimate beside the one made from
+the trace of every layer and every step, with each one's source and
+seconds, on the CPU at smoke width:
 
   PYTHONPATH=src python -m repro_torch.examples.depth --arch qwen3-32b \\
       --n-layers 32
   PYTHONPATH=src python -m repro_torch.examples.depth --arch xlstm-1.3b \\
       --n-layers 8 --seq 64
+  PYTHONPATH=src python -m repro_torch.examples.depth \\
+      --arch jamba-1.5-large-398b --n-layers 4 --seq 512
+
+The last composes each Mamba layer's 32 chunks over their 16 steps (two
+levels: "loops composed: ... steps traced, 2 levels").
 
 Exits 1 when the two estimates differ by a byte.
 """

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import AttentionConfig
+from .steps import cat_steps, step_range
 
 
 # ---------------------------------------------------------------------------
@@ -109,7 +110,8 @@ def _attend_q_chunk(qc, k, v, q0: int, *, causal, window, is_global,
                       device=qc.device)
     m = torch.full((B, Hkv, G, cq), float("-inf"), device=qc.device)
     l = torch.zeros((B, Hkv, G, cq), device=qc.device)
-    for k0 in range(0, Sk, chunk_kv):
+    for j in step_range(-(-Sk // chunk_kv)):
+        k0 = j * chunk_kv
         kc, vc = k[:, k0:k0 + chunk_kv], v[:, k0:k0 + chunk_kv]
         kv_pos = torch.arange(k0, k0 + kc.shape[1], device=qc.device)
         s = _grouped_scores(qc, kc) * scale               # [B,Hkv,G,cq,ckv]
@@ -139,14 +141,17 @@ def chunked_attention(q, k, v, *, causal=True, window=None, is_global=None,
     counterpart of ``jax.checkpoint(q_body)``: the backward recomputes
     one chunk's scores at a time instead of keeping every chunk's. The
     chunks are joined with ``torch.cat``, so no output is written in
-    place."""
+    place. Both loops are step loops (``models/steps.py``): a trace
+    probe runs a few chunks of each (``core/loops.py``)."""
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
     train = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                          or v.requires_grad)
+    n_chunks = -(-S // chunk_q)
     chunks = []
-    for q0 in range(0, S, chunk_q):
+    for j in step_range(n_chunks):
+        q0 = j * chunk_q
         qc = q[:, q0:q0 + chunk_q].reshape(B, -1, Hkv, G, hd)
         kw = dict(causal=causal, window=window, is_global=is_global,
                   chunk_kv=chunk_kv)
@@ -156,7 +161,7 @@ def chunked_attention(q, k, v, *, causal=True, window=None, is_global=None,
         else:
             o = _attend_q_chunk(qc, k, v, q0, **kw)
         chunks.append(o.to(q.dtype))
-    return chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=1)
+    return chunks[0] if n_chunks == 1 else cat_steps(chunks, n_chunks, dim=1)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len: int, *,

@@ -31,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import MambaConfig
 from .layers import normal_init
-from .steps import stack_steps, step_range
+from .steps import cat_steps, stack_steps, step_range
 
 
 def mamba_params(gen, d_model: int, cfg: MambaConfig, dtype, *, device,
@@ -119,17 +119,18 @@ def mamba_block(x, p, cfg: MambaConfig):
         t.requires_grad for t in (A, xa, dt, Bm, Cm))
     h = torch.zeros((B, d_inner, cfg.d_state), dtype=torch.float32,
                     device=x.device)
+    n_chunks = -(-S // ch)
     ys = []
-    for c0 in range(0, S, ch):
-        args = (h, A, xa[:, c0:c0 + ch], dt[:, c0:c0 + ch],
-                Bm[:, c0:c0 + ch], Cm[:, c0:c0 + ch])
+    for j in step_range(n_chunks):
+        c = slice(j * ch, (j + 1) * ch)
+        args = (h, A, xa[:, c], dt[:, c], Bm[:, c], Cm[:, c])
         if train:
             h, y = checkpoint(_scan_chunk, *args, use_reentrant=False,
                               preserve_rng_state=False)
         else:
             h, y = _scan_chunk(*args)
         ys.append(y)
-    y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
+    y = ys[0] if n_chunks == 1 else cat_steps(ys, n_chunks, dim=1)
     y = y + p["D"] * xa.float()
     y = y * F.silu(z.float())
     return y.to(x.dtype) @ p["out_proj"], None

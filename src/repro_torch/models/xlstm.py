@@ -326,14 +326,15 @@ def slstm_block(x, p, n_heads: int, chunk: int = 256, state=None):
                       for t in state)
     ch = min(chunk, S)
     train = _training(xn, bias, R, *W, *carry)
+    n_chunks = -(-S // ch)
     hs = []
-    for c0 in range(0, S, ch):
-        xc = xn[c0:c0 + ch]
+    for j in step_range(n_chunks):
+        xc = xn[j * ch:(j + 1) * ch]
         args = (*carry, xc, W, bias, R, ch - xc.shape[0])
         *carry, h = _ckpt(_slstm_chunk, *args) if train \
             else _slstm_chunk(*args)
         hs.append(h)
-    h = hs[0] if len(hs) == 1 else torch.cat(hs)   # [Sp, H, B, dh]
+    h = hs[0] if n_chunks == 1 else cat_steps(hs, n_chunks)  # [Sp, H, B, dh]
     h = h[:S].permute(2, 0, 1, 3).to(x.dtype).reshape(B, S, D)
     state = tuple(t.transpose(0, 1).reshape(B, D) for t in carry)
     return h @ p["w_out"], state

@@ -21,7 +21,7 @@ def test_slstm_loops_compose_in_training(remat):
     info = assert_loops_compose(smoke(XLSTM, remat=remat), "train")
     # 2 periods' sLSTM, 4 chunks each, in the forward and the chunks'
     # recompute (full and dots: the period's recompute too)
-    assert info["signatures"] == [[16, info["loops"]]]
+    assert info["signatures"] == [[16, info["loops"], 0]]
     assert info["loops"] == (24 if remat != "none" else 16)
 
 
@@ -41,12 +41,13 @@ def test_slstm_zero_steps_of_an_uneven_sequence_compose():
     # 72 = 4 chunks of 16 and one of 8 padded with 8 zero steps: each
     # chunk's loop runs 16 steps
     info = assert_loops_compose(smoke(XLSTM), "train", seq=72)
-    assert info["signatures"] == [[16, 30]]
+    assert info["signatures"] == [[16, 30, 0]]
 
 
 def test_mlstm_chunk_loops_compose_beside_the_slstm_steps():
     # 256 positions: each mLSTM block's 16 chunks are a long loop too
     info = assert_loops_compose(smoke(XLSTM, n_layers=4), "train", seq=256)
     # one period: 3 mLSTM loops and the sLSTM's 16 chunks of 16 steps,
-    # each in the forward and two recomputes
-    assert info["signatures"] == [[16, 3 * 3 + 16 * 3]]
+    # each in the forward and two recomputes (16 chunks are fewer than
+    # NEST_MIN: the sLSTM's chunk loop runs every chunk)
+    assert info["signatures"] == [[16, 3 * 3 + 16 * 3, 0]]

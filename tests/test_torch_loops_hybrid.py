@@ -29,17 +29,17 @@ def test_mamba_loops_compose_in_training(remat):
 
 def test_mamba_loops_compose_in_prefill():
     info = assert_loops_compose(smoke(JAMBA), "prefill")
-    assert info["signatures"] == [[16, 24]]
+    assert info["signatures"] == [[16, 24, 0]]
 
 
 def test_a_shorter_last_chunk_is_a_loop_of_its_own():
     # 72 = 4 chunks of 16 and a last of 8 steps, fewer than the probes
     # run: traced in full inside the composed phase
     info = assert_loops_compose(smoke(JAMBA), "train", seq=72)
-    assert info["signatures"] == [[16, 72]]
+    assert info["signatures"] == [[16, 72, 0]]
     # chunks of 32, 32 and 16: the last composes at its own 16 steps
     info = assert_loops_compose(smoke(JAMBA, chunk=32), "train", seq=80)
-    assert info["signatures"] == [[16, 18], [32, 36]]
+    assert info["signatures"] == [[16, 18, 0], [32, 36, 0]]
 
 
 def test_loops_compose_inside_depth_probes():

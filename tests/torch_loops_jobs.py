@@ -12,9 +12,12 @@ from repro_torch.core.estimator import XMemEstimator, trace_entry
 from repro_torch.train.train_step import TrainPolicy, make_estimator_hooks
 from torch_depth_jobs import phase_args
 
-XLSTM, JAMBA = "xlstm-1.3b", "jamba-1.5-large-398b"
+XLSTM, JAMBA, DENSE = "xlstm-1.3b", "jamba-1.5-large-398b", "qwen3-32b"
 #: 4 chunks of the smoke configs' 16 steps
 SEQ = 64
+#: 16 chunks of 16 steps: the chunk loops are long too, and nest the
+#: step loops (``nested``)
+NESTED_SEQ = 256
 
 
 def smoke(arch: str, chunk: int | None = None, **kw):
@@ -27,6 +30,27 @@ def smoke(arch: str, chunk: int | None = None, **kw):
             cfg.xlstm, chunk=chunk))
     return dataclasses.replace(cfg, mamba=dataclasses.replace(
         cfg.mamba, chunk=chunk))
+
+
+def nested(arch: str, chunk: int = 16, **kw):
+    """``arch``'s smoke config cut to one period of two layers whose
+    loops nest at ``NESTED_SEQ``: xlstm one mLSTM block and one sLSTM,
+    jamba one attention layer and one Mamba, each with its steps in
+    chunks of ``chunk``; qwen3 one layer of chunked attention over
+    query and key chunks of ``chunk`` positions."""
+    cfg = reg.get_smoke(arch)
+    if cfg.family == "ssm":
+        kw.setdefault("n_layers", 2)
+        return dataclasses.replace(cfg, xlstm=dataclasses.replace(
+            cfg.xlstm, chunk=chunk, slstm_every=2), **kw)
+    if cfg.family == "hybrid":
+        kw.setdefault("n_layers", 2)
+        return dataclasses.replace(
+            smoke(arch, chunk, **kw),
+            attention=dataclasses.replace(cfg.attention, attn_every=2))
+    kw.setdefault("n_layers", 1)
+    return dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, impl="chunked", chunk_q=chunk, chunk_kv=chunk), **kw)
 
 
 def composed_and_full(cfg, kind: str, seq: int = SEQ,
@@ -56,7 +80,8 @@ def assert_loops_compose(cfg, kind: str, seq: int = SEQ,
     composed, info, full, awk = composed_and_full(cfg, kind, seq,
                                                   microbatches)
     assert info["source"] == "composed", info
-    assert info["probes"] == len(L.PROBE_STEPS)
+    # two probes a level: four when loops nest
+    assert info["probes"] == len(L.PROBE_STEPS) ** len(info["by_level"])
     assert info["steps_traced"] < info["steps"]
     assert composed.trace.meta["loops"]["source"] == "composed"
     assert D.phases_equal(composed, full)
