@@ -11,7 +11,12 @@ non-zero:
    the CPU (no CUDA call) while this process uses the card, on the
    other half of the CPU cores (``cpus``), then waits for its turn on
    the card;
-0a. depth_compose — in a process of its own beside them, from the start
+0a. sharded_ahead — two processes beside them, from the start
+   (``--sharded-ahead GROUPS OUT``, no card): each of ``dense_sharded``'s
+   runs estimated as rank 0's program on the CPU (the xMem estimate of
+   its local trace, composed past 9 layers; its local counts) and the
+   mesh sweep's row for its topology;
+0b. depth_compose — in a process of its own beside them, from the start
    (``--depth-compose OUT``, no card): the vlm and audio training
    estimates (24 and 16 layers) from traces composed of probes at 2, 3
    and 4 layers (``core/depth.py``), and the ssm one (8 layers) from a
@@ -31,7 +36,7 @@ non-zero:
    or more bodies (the sLSTM's and Mamba's chunks and steps, chunked
    attention's query and key chunks), comes from a composed trace, to
    the byte the full trace's;
-0b. serving_ahead — in a process of its own on this process's cores,
+0c. serving_ahead — in a process of its own on this process's cores,
    from the start (``--serving-ahead STORE``, no card, one thread): the
    xlstm-1.3b and 32k serving gates' candidates (``SERVING_AHEAD``)
    traced into a trace store, which those gates read from disk;
@@ -148,16 +153,23 @@ non-zero:
    of the gate's rejected batch over every topology of 2 and 4 devices
    at the card's capacity (each per-device estimate, persistent and
    injected collective bytes, fit), from the gate's cached trace; and
-   ``dense_mesh``: rank 0 of two of those topologies that fit (the
-   fewest devices, then the lowest peak; one with model > 1) and whose
-   specs a single-device job can express (no fsdp; no state sharded
-   over data), each run as the single-device job Megatron TP gives rank
-   0 (heads, kv heads, d_ff and vocab over ``model``, the batch over
-   pod x data; ``rank_local_job`` checks every leaf's spec), 3 AdamW
-   steps, the sweep's per-device estimate and the port's estimate of
-   the rank-local job (traced ahead) beside the card's peaks, and each
-   data-parallel topology's estimate beside the 1-device peak of its
-   rank's batch where this process measured one;
+   ``dense_sharded``: rank 0 of qwen3-32b's sharded programs run
+   sharded under DTensor (``launch/dryrun.py``, ``distributed/
+   program.py``), each under a ``fake`` process group of its mesh's
+   size (its collectives return buffers of the right shape and move no
+   data; NCCL's buffers are absent) with real local shards on the card:
+   the pure tensor-parallel 1x1x2 and 1x1x4 (4 layers, batch 8, 3 AdamW
+   steps), TRAIN_4K on the 16x16 production mesh (fsdp, AdamW, 4
+   microbatches, 64 layers cut to 16, 3 steps), and the serving cut's 8
+   layers at PREFILL_32K (the sm90 kernel on each rank's heads) and
+   DECODE_32K; each run's estimate was made ahead on the CPU
+   (``--sharded-ahead``, two processes from the start) from rank 0's
+   local trace, and each is printed beside the card's reserved and
+   allocated peaks, with the mesh sweep's row for its topology, the
+   local FLOPs beside the analytic count, and the collective bytes by
+   kind (``dense_sharded_run``); the sm90 kernel at the prefill's local
+   shape (2, 4, 1, 32768, 128) against its plain version
+   (``dense_sharded_kernel``, a row of the ``kernels`` line);
 9a. dense_sgd_train — the same job with SGD (``--train dense_sgd``):
    the paper's optimizer axis, where DNNMem's estimate stays put;
 10. moe_train — the same in a child of its own (``--train moe``) for
@@ -398,15 +410,37 @@ PLAN_MICROBATCHES = (2, 4)
 PLAN_OFFLOAD_ACTIVATIONS = (0.5,)
 # the dense job's mesh sweep (``dense_mesh_sweep``, the planner's
 # topology axis in ``plan_offers``) over every topology of these device
-# counts, and the grid swept as well when no two of those fit
+# counts
 DENSE_MESH_DEVICES = (2, 4)
-DENSE_MESH_FALLBACK_DEVICES = (8,)
-# the rank-local runs of ``dense_mesh``; the capacity the dense child's
-# gate reads on an H100 80GB HBM3 beside the other processes' contexts,
-# used only to choose ahead of its turn which rank-local jobs to trace:
-# the turn chooses again at the capacity it reads
-DENSE_MESH_RUNS = 2
-DENSE_MESH_CAPACITY_AHEAD = 83_454_525_440
+# ``dense_sharded``: rank 0 of qwen3-32b's sharded programs on the card,
+# under a ``fake`` process group of the mesh's size. Each run: (label,
+# layers, shape (seq, global batch, kind), mesh dims, axis names, group
+# of the process that estimates it ahead, steps on the card). "a": the
+# topologies ``dense_mesh`` ran (pure tensor parallelism, the dense
+# job's 4 layers and batch 8, AdamW); "b": TRAIN_4K on the production
+# 16x16 mesh with the dry run's policies (fsdp, AdamW, 4 microbatches),
+# 64 layers cut to 16 for the script's run time (a step takes about a
+# second a layer on the card); "c": the
+# serving cut's 8 layers at PREFILL_32K (the sm90 kernel on each rank's
+# heads) and DECODE_32K
+SHARDED_RUNS = (
+    ("1x1x2", 4, (4096, 8, "train"), (1, 1, 2), ("pod", "data", "model"),
+     "a", 3),
+    ("1x1x4", 4, (4096, 8, "train"), (1, 1, 4), ("pod", "data", "model"),
+     "a", 3),
+    ("16x16 train_4k", 16, (4096, 256, "train"), (16, 16),
+     ("data", "model"), "b", 3),
+    ("16x16 prefill_32k", 8, (32768, 32, "prefill"), (16, 16),
+     ("data", "model"), "c", 1),
+    ("16x16 decode_32k", 8, (32768, 128, "decode"), (16, 16),
+     ("data", "model"), "c", 1),
+)
+# the processes that estimate them ahead, on the CPU, from the start
+SHARDED_AHEAD = ("a,c", "b")
+SHARDED_AHEAD_TIMEOUT_S = 600
+# the sharded prefill's kernel at rank 0's local shape (B, H, Hkv, S, d):
+# 2 of 32 sequences, 4 of 64 query heads, the 1 kv head they group over
+SHARDED_KERNEL_SHAPE = (2, 4, 1, 32768, 128)
 # the serving search (``serve_plan``, a process of its own): a burst of
 # SERVE_PLAN_REQUESTS requests of PROMPT_LEN + DECODE_TOKENS positions,
 # all queued at tick 0 (a batch-inference job's prompts), at page 16,
@@ -1594,9 +1628,8 @@ def phase_train(job: str, rows_path: str) -> None:
         fwd_s[b] = time.perf_counter() - t0
         est.trace_phases(fwd_bwd, params, specs, update, opt_init)
         trace_s[b] = time.perf_counter() - t0
-    plan_ahead_s, mesh_ahead = {}, {}
+    plan_ahead_s = {}
     if job == "dense":
-        mesh_ahead = dense_mesh_ahead(cfg, policy, est, candidates[0])
         # the remediation search's microbatch candidates at the gate's
         # first batch: each a program of its own (f32 gradient sums)
         specs = input_specs(cfg, smoke_shape(TRAIN_SEQ, candidates[0]))
@@ -1706,8 +1739,8 @@ def phase_train(job: str, rows_path: str) -> None:
         mesh = phase_dense_mesh_sweep(cfg, policy, service, capacity, gate)
         phase_plan_offers(cfg, policy, service, capacity, gate, truths,
                           plan_ahead_s, mesh)
-        phase_dense_mesh(cfg, policy, est, service, capacity, gate, mesh,
-                         mesh_ahead, truths)
+        torch.cuda.empty_cache()
+        phase_dense_sharded(Path(rows_path).parent, mesh)
     if job == FLEET_JOB:
         # the workers import while the daemon phase runs on the CPU; each
         # waits on stdin, and exits when this process does
@@ -2101,119 +2134,6 @@ def collective_bytes(rep) -> dict:
             if b.block_kind is BlockKind.COLLECTIVE}
 
 
-def rank_local_job(cfg, topo, global_batch: int):
-    """(config, batch) of rank 0's share of ``cfg`` at ``global_batch``
-    on ``topo``, run as a single-device job: Megatron tensor
-    parallelism's rank-local tensors are the model's with heads, kv
-    heads, d_ff and vocab divided by ``model``, at the batch over
-    pod x data. Raises ``ValueError`` for a topology whose specs that
-    job cannot express: fsdp; a dim the rule engine left replicated (a
-    divisibility fallback); an optimizer state the rule engine shards
-    over a data axis (``opt_spec_for_shape`` does so without fsdp, as
-    ZeRO-1 would), which a single-device job holds whole. Every
-    parameter leaf's spec is checked against the rank-local leaf's
-    shape, and its optimizer state's spec for axes other than model."""
-    from repro_torch.distributed.sharding import (batch_spec_for_shape,
-                                                  opt_spec_for_shape,
-                                                  spec_factor,
-                                                  spec_for_path)
-    from repro_torch.models import model as M
-    from torch.utils import _pytree as pytree
-    if topo.fsdp:
-        raise ValueError(f"{topo.label}: fsdp shards the parameters' "
-                         f"largest dims, which no single-device job has")
-    m, replicas = topo.model, topo.pod * topo.data
-    dims = {k: getattr(cfg, k) for k in ("n_heads", "n_kv_heads", "d_ff",
-                                         "vocab")}
-    if any(v % m for v in dims.values()) or global_batch % replicas:
-        raise ValueError(f"{topo.label}: {dims} or batch {global_batch} "
-                         f"does not divide")
-    local = dataclasses.replace(cfg, **{k: v // m for k, v in dims.items()})
-    sizes, pol = topo.axis_sizes, topo.sharding_policy()
-
-    def leaves(c):
-        flat, _ = pytree.tree_flatten_with_path(M.abstract_params(c))
-        return {pytree.keystr(k): tuple(x.shape) for k, x in flat}
-    glob, loc = leaves(cfg), leaves(local)
-    if glob.keys() != loc.keys():
-        raise ValueError(f"{topo.label}: the rank-local tree differs")
-    for path, shape in glob.items():
-        spec = tuple(spec_for_path(path, shape, sizes, pol))
-        spec += (None,) * (len(shape) - len(spec))
-        if any(e not in (None, pol.model_axis) for e in spec):
-            raise ValueError(f"{topo.label}: {path} spec {spec}")
-        want = tuple(d // m if e else d for d, e in zip(shape, spec))
-        if loc[path] != want:
-            raise ValueError(f"{topo.label}: {path} spec {spec} gives "
-                             f"{want}, the rank-local job {loc[path]}")
-        opt = [e for e in opt_spec_for_shape(shape, sizes, pol)
-               if e not in (None, pol.model_axis)]
-        if any(sizes[a] > 1 for e in opt
-               for a in (e if isinstance(e, tuple) else (e,))):
-            raise ValueError(f"{topo.label}: {path}'s optimizer state "
-                             f"shards over {opt}")
-    bshape = (global_batch, TRAIN_SEQ)
-    if spec_factor(batch_spec_for_shape(bshape, sizes, pol), bshape,
-                   sizes) != replicas:
-        raise ValueError(f"{topo.label}: the batch does not shard "
-                         f"{replicas} ways")
-    return local, global_batch // replicas
-
-
-def expressible(cfg, topo, global_batch: int) -> bool:
-    """Whether ``rank_local_job`` can run rank 0 of ``topo``."""
-    try:
-        rank_local_job(cfg, topo, global_batch)
-    except ValueError:
-        return False
-    return True
-
-
-def pick_mesh_runs(cfg, rows, capacity: int, global_batch: int) -> list:
-    """``DENSE_MESH_RUNS`` topologies whose rank 0 ``rank_local_job``
-    can run (no fsdp, no state sharded over data) and whose per-device
-    estimate fits ``capacity`` (not out of memory, peak within it): the
-    fewest devices, then the lowest peak, one of them with model > 1."""
-    fits = sorted(((t, r) for t, r in rows if not r.oom
-                   and r.peak_bytes <= capacity
-                   and expressible(cfg, t, global_batch)),
-                  key=lambda tr: (tr[0].n_devices, tr[1].peak_bytes))
-    picks = fits[:DENSE_MESH_RUNS]
-    if picks and not any(t.model > 1 for t, _ in picks):
-        tp = next(((t, r) for t, r in fits if t.model > 1), None)
-        picks = picks[:-1] + [tp] if tp is not None else []
-    return picks if len(picks) == DENSE_MESH_RUNS else []
-
-
-def dense_mesh_ahead(cfg, policy, est, b0: int) -> dict:
-    """Before the dense job's turn, on the CPU: the mesh sweep of the
-    gate's first candidate replayed unbounded from the traces made
-    ahead, the runs ``pick_mesh_runs`` would choose at
-    ``DENSE_MESH_CAPACITY_AHEAD``, and their rank-local jobs traced."""
-    from repro_torch.configs.base import smoke_shape
-    from repro_torch.configs.registry import input_specs
-    from repro_torch.core.sweep import SweepService
-    from repro_torch.models import model as M
-    from repro_torch.train import make_estimator_hooks
-    fwd, upd, init = make_estimator_hooks(cfg, policy)
-    t0 = time.perf_counter()
-    res = SweepService(est).estimate_mesh_sweep(
-        fwd, M.abstract_params(cfg), input_specs(
-            cfg, smoke_shape(TRAIN_SEQ, b0)), mesh_grid(DENSE_MESH_DEVICES),
-        update_fn=upd, opt_init_fn=init, cfg=cfg)
-    picks = pick_mesh_runs(cfg, res, DENSE_MESH_CAPACITY_AHEAD, b0)
-    out = {"sweep_s": time.perf_counter() - t0, "traced_s": {},
-           "picks": [t.label for t, _ in picks]}
-    for topo, _ in picks:
-        local, lb = rank_local_job(cfg, topo, b0)
-        f, u, i = make_estimator_hooks(local, policy)
-        t0 = time.perf_counter()
-        est.trace_phases(f, M.abstract_params(local),
-                         input_specs(local, smoke_shape(TRAIN_SEQ, lb)), u, i)
-        out["traced_s"][topo.label] = time.perf_counter() - t0
-    return out
-
-
 def phase_dense_mesh_sweep(cfg, policy, service, capacity: int, gate: dict):
     """The admission service's mesh sweep of the gate's rejected batch
     over every topology of ``DENSE_MESH_DEVICES`` devices at the card's
@@ -2245,125 +2165,342 @@ def phase_dense_mesh_sweep(cfg, policy, service, capacity: int, gate: dict):
     return res
 
 
-def phase_dense_mesh(cfg, policy, est, service, capacity: int, gate: dict,
-                     mesh, ahead: dict, truths: dict) -> None:
-    """Rank 0 of the sharded dense job on the card: ``pick_mesh_runs`` of
-    the mesh sweep (``topology_grid`` of ``DENSE_MESH_FALLBACK_DEVICES``
-    swept too when none fits), each topology's rank-local job
-    (``rank_local_job``) estimated on one device (traced ahead) and run
-    for ``TRAIN_STEPS`` steps. Fails on an out-of-memory run or a
-    non-finite loss, a sweep estimate under the card's reserved peak by
-    more than ``RESERVED_TOL``, or a rank-local estimate outside
-    ``RESERVED_TOL`` reserved or ``ALLOCATED_TOL`` allocated. An
-    over-estimate by the sweep is reported: the run leaves out NCCL's
-    buffers and the staging the sweep injects. So is each data-parallel
-    topology whose rank's job the card ran at 1 device in this process
-    (``truths``: the train run, DirectProbe's probes): its per-device
-    estimate beside that peak, where the rule engine's optimizer state,
-    sharded over data, and a DDP rank's, whole, differ."""
-    import math
+def sharded_specs(groups=None) -> list[dict]:
+    """``SHARDED_RUNS`` (those of ``groups``, default all) with their
+    configs, shapes and policies: "a" a topology's own (``MeshTopology.
+    sharding_policy``, the dense job's optimizer), "b" and "c" the dry
+    run's for qwen3-32b's full config. Serving attends through the
+    kernel, as ``launch/serve.py`` serves."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.sweep import MeshTopology
+    from repro_torch.launch import dryrun
+    full = get_config("qwen3-32b")
+    out = []
+    for label, layers, (seq, batch, kind), dims, names, group, steps \
+            in SHARDED_RUNS:
+        if groups is not None and group not in groups:
+            continue
+        sizes = dict(zip(names, dims))
+        cfg = path_config("qwen3-32b", layers,
+                          impl=None if kind == "train" else "flash")
+        if group == "a":
+            topo = MeshTopology(sizes.get("pod", 1), sizes.get("data", 1),
+                                sizes["model"])
+            spolicy, tpolicy = topo.sharding_policy(), train_policy("dense")
+        else:
+            topo = MeshTopology(sizes.get("pod", 1), sizes["data"],
+                                sizes["model"], fsdp=True)
+            spolicy = dryrun.arch_sharding_policy(full, sizes)
+            tpolicy = dryrun.arch_train_policy(full.name, full)
+        out.append({"label": label, "cfg": cfg, "kind": kind, "dims": dims,
+                    "names": names, "group": group, "steps": steps,
+                    "shape": ShapeSpec(label, seq, batch, kind),
+                    "topology": topo, "spolicy": spolicy,
+                    "tpolicy": tpolicy if kind == "train" else None})
+    return out
 
-    import torch
-    from repro_torch.configs.base import smoke_shape
-    from repro_torch.configs.registry import input_specs
-    from repro_torch.launch import train as trn
+
+def sweep_row(spec, est) -> dict:
+    """The mesh sweep's per-device estimate of ``spec``'s topology, from
+    one device's trace of the global step (``SpecShardFactors`` and the
+    collective staging; training through ``estimate_mesh_sweep``, as
+    ``dense_mesh_sweep`` sweeps)."""
+    from repro_torch.configs.registry import (abstract_cache,
+                                              decode_input_specs,
+                                              input_specs)
+    from repro_torch.core.sweep import SweepService
+    from repro_torch.distributed.program import _prefill_step
+    from repro_torch.distributed.sharding import shard_factor_fn
     from repro_torch.models import model as M
     from repro_torch.train import make_estimator_hooks
-    b0 = gate["candidates"][0]["batch"]
-    rows = list(mesh)
-    picks = pick_mesh_runs(cfg, rows, capacity, b0)
-    fallback = None
-    if not picks:
-        fwd, upd, init = make_estimator_hooks(cfg, policy)
-        fallback = service.mesh_sweep(
-            fwd, M.abstract_params(cfg), input_specs(
-                cfg, smoke_shape(TRAIN_SEQ, b0)),
-            mesh_grid(DENSE_MESH_FALLBACK_DEVICES), update_fn=upd,
-            opt_init_fn=init, cfg=cfg, capacity=capacity)
-        rows += list(fallback)
-        picks = pick_mesh_runs(cfg, rows, capacity, b0)
-    if not picks:
-        raise AssertionError(f"dense_mesh: no {DENSE_MESH_RUNS} topologies "
-                             f"that a single-device job can express fit "
-                             f"{capacity} B")
+    from repro_torch.train.train_step import make_serve_step
+    cfg, shape, topo = spec["cfg"], spec["shape"], spec["topology"]
+    params = M.abstract_params(cfg)
+    t0 = time.perf_counter()
+    if spec["kind"] == "train":
+        fwd, upd, init = make_estimator_hooks(cfg, spec["tpolicy"])
+        res = SweepService(est).estimate_mesh_sweep(
+            fwd, params, input_specs(cfg, shape), [topo], update_fn=upd,
+            opt_init_fn=init, cfg=cfg)
+        rep = list(res)[0][1]
+        coll = collective_bytes(rep)
+    else:
+        if spec["kind"] == "prefill":
+            step, cache = _prefill_step(cfg), {}
+            batch = input_specs(cfg, shape)
+        else:
+            step = make_serve_step(cfg, shape.seq_len - 1)
+            cache = abstract_cache(cfg, shape)
+            batch = decode_input_specs(cfg, shape)
+        rep = est.estimate_serving(step, params, cache, batch,
+                                   shard_factor_fn=shard_factor_fn(
+                                       cfg, topo.axis_sizes,
+                                       topo.sharding_policy(),
+                                       params=params, batch=batch,
+                                       cache=cache or None))
+        coll = {}
+    return {"topology": topo.label, "peak": rep.peak_bytes,
+            "tensor_peak": rep.peak_tensor_bytes,
+            "persistent": rep.persistent_bytes, "collectives": coll,
+            "seconds": time.perf_counter() - t0}
+
+
+def sharded_ahead(groups: str, out_path: str) -> None:
+    """On the CPU, no card: each run of ``groups`` (``SHARDED_RUNS``)
+    estimated as rank 0's program (``launch/dryrun.py``: the xMem
+    estimate of the local trace, its local counts) under a ``fake``
+    process group of the mesh's size, and the mesh sweep's row for its
+    topology; written to ``out_path`` as each run ends."""
+    from repro_torch.core.estimator import XMemEstimator
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world
+    from torch.distributed.device_mesh import init_device_mesh
+    _quiet_dtensor()
+    out = {}
+    for spec in sharded_specs(groups.split(",")):
+        n = 1
+        for d in spec["dims"]:
+            n *= d
+        row = {}
+        with fake_world(n):
+            mesh = init_device_mesh("cpu", spec["dims"],
+                                    mesh_dim_names=spec["names"])
+            job = dryrun.build_job(spec["cfg"], spec["shape"], mesh,
+                                   spec["spolicy"], spec["tpolicy"])
+            t0 = time.perf_counter()
+            rep = dryrun.estimate(job)
+            row["estimate_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            counter, how = dryrun.count(spec["cfg"], spec["shape"], mesh,
+                                        spec["spolicy"], spec["tpolicy"])
+            row.update(count_s=time.perf_counter() - t0, counted=how)
+        row.update(estimate=rep.peak_bytes,
+                   sim_segments_mib=sorted(round(x["size"] / 2**20, 1)
+                                           for x in rep.sim.segments),
+                   tensor_estimate=rep.peak_tensor_bytes,
+                   persistent=rep.persistent_bytes, depth=rep.depth,
+                   argument_bytes=dryrun.local_bytes(job.local),
+                   flops=counter.flops, bytes_accessed=counter.bytes_accessed,
+                   ops=counter.ops, collectives=counter.collectives())
+        row["sweep"] = sweep_row(spec, XMemEstimator.for_torch_gpu())
+        out[spec["label"]] = row
+        Path(out_path + ".tmp").write_text(json.dumps(out))
+        os.replace(out_path + ".tmp", out_path)
+
+
+def ahead_path(rows_dir: Path, group: str) -> Path:
+    """The file the ``--sharded-ahead`` process of ``group`` writes."""
+    groups = next(g for g in SHARDED_AHEAD if group in g.split(","))
+    return Path(rows_dir) / f"sharded_{groups.replace(',', '')}.json"
+
+
+def _quiet_dtensor() -> None:
+    """DTensor warns at every redistribution that runs more than one
+    collective (a partial over two mesh dims): keep them off stderr."""
+    import logging
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+
+
+def _wait_for(path: Path, label: str) -> dict:
+    deadline = time.monotonic() + SHARDED_AHEAD_TIMEOUT_S
+    while True:
+        if path.exists():
+            got = json.loads(path.read_text())
+            if label in got:
+                return got[label]
+        if time.monotonic() > deadline:
+            raise AssertionError(f"dense_sharded: no estimate of {label} "
+                                 f"in {path}")
+        time.sleep(1.0)
+
+
+def phase_dense_sharded(rows_dir: Path, mesh=None, groups=None) -> None:
+    """Rank 0 of qwen3-32b's sharded programs (``SHARDED_RUNS``) on the
+    card: each under a ``fake`` process group of its mesh's size (its
+    collectives move no data, and NCCL's buffers are absent), with real
+    local shards on the card, its training steps or one serving step,
+    beside its estimate made ahead (``--sharded-ahead``). Fails on an out
+    of memory, an estimate outside ``RESERVED_TOL`` reserved or outside
+    ``ALLOCATED_TOL`` (training) / ``SERVING_ALLOCATED_TOL`` (serving)
+    allocated, a run of group "a" whose mesh-sweep row is more than
+    ``RESERVED_TOL`` under the card's reserved peak (the sharded estimate
+    safety rule), a sharded prefill that launched no kernel, or a kernel
+    at rank 0's local shape that differs from its plain version. The
+    sweep rows of "b" and "c" are reported. ``mesh``: the dense job's
+    ``dense_mesh_sweep`` rows, each "a" row held to the ahead sweep's."""
+    import torch
+    _quiet_dtensor()
+    swept = {t.label: r.peak_bytes for t, r in mesh} if mesh else {}
     runs, violations = [], []
-    for topo, row in picks:
-        local, lb = rank_local_job(cfg, topo, b0)
-        shape = smoke_shape(TRAIN_SEQ, lb)
-        f, u, i = make_estimator_hooks(local, policy)
-        h0 = est.trace_cache.misses
-        t0 = time.perf_counter()
-        rep = est.estimate_training(f, M.abstract_params(local),
-                                    input_specs(local, shape), update_fn=u,
-                                    opt_init_fn=i, capacity=capacity)
-        run = {"topology": topo.label, "model": topo.model,
-               "replicas": topo.pod * topo.data, "local_batch": lb,
-               "local_dims": {k: getattr(local, k) for k in (
-                   "n_heads", "n_kv_heads", "d_ff", "vocab")},
-               "sweep_estimate": row.peak_bytes,
-               "sweep_tensor_estimate": row.peak_tensor_bytes,
-               "sweep_collectives": collective_bytes(row),
-               "local_estimate": rep.peak_bytes,
-               "local_tensor_estimate": rep.peak_tensor_bytes,
-               "local_estimate_s": time.perf_counter() - t0,
-               "traced_at_turn": est.trace_cache.misses - h0}
-        torch.cuda.empty_cache()
-        params = M.init_params(local, 0, device="cuda")
-        torch.cuda.synchronize()
-        try:
-            got = trn.train_loop(local, shape, policy, steps=TRAIN_STEPS,
-                                 device="cuda", params=params)
-        except torch.OutOfMemoryError as e:
-            run["card"] = f"out of memory: {str(e).splitlines()[0]}"
-            violations.append(f"{topo.label}: out of memory")
+    # the serving runs' processes import while the training runs use the
+    # card; each waits for a line on stdin before its first CUDA call
+    serving = {spec["label"]: subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--sharded-serving",
+         spec["label"], str(rows_dir)], stdin=subprocess.PIPE, text=True)
+        for spec in sharded_specs(groups) if spec["kind"] != "train"}
+    try:
+        for spec in sharded_specs(groups):
+            label = spec["label"]
+            ahead = _wait_for(ahead_path(rows_dir, spec["group"]), label)
+            if spec["kind"] == "train":
+                torch.cuda.empty_cache()
+                card = sharded_card_run(spec)
+            else:
+                # a serving job's process of its own: its cuBLAS workspace
+                # is made at its first matmul, as its estimate has it
+                # (this one holds the training runs' two from the start)
+                child = serving.pop(label)
+                child.stdin.write("go\n")
+                child.stdin.close()
+                if child.wait(timeout=600) != 0:
+                    raise AssertionError(f"dense_sharded {label}: exit "
+                                         f"{child.returncode}")
+                card = json.loads(card_path(rows_dir, label).read_text())
+            if "oom" in card:
+                violations.append(f"{label}: {card['oom']}")
+                continue
+            run = sharded_record(spec, ahead, card, swept.get(label),
+                                 violations)
             runs.append(run)
-            del params
-            torch.cuda.empty_cache()
-            continue
-        losses = got.out.losses
-        run.update(reserved=got.reserved, allocated=got.allocated,
-                   losses=losses, step_ms=[x * 1e3 for x in got.out.step_s],
-                   sweep_rel_reserved=(row.peak_bytes - got.reserved)
-                   / got.reserved,
-                   local_rel_reserved=(rep.peak_bytes - got.reserved)
-                   / got.reserved,
-                   local_rel_allocated=(rep.peak_tensor_bytes
-                                        - got.allocated) / got.allocated)
-        if not all(math.isfinite(x) for x in losses):
-            violations.append(f"{topo.label}: loss {losses}")
-        if run["sweep_rel_reserved"] < -RESERVED_TOL:
-            violations.append(f"{topo.label}: the sweep's estimate "
-                              f"{run['sweep_rel_reserved']:+.4%} under the "
-                              f"card's reserved peak")
-        if abs(run["local_rel_reserved"]) > RESERVED_TOL:
-            violations.append(f"{topo.label}: rank-local estimate "
-                              f"{run['local_rel_reserved']:+.4%} reserved")
-        if abs(run["local_rel_allocated"]) > ALLOCATED_TOL:
-            violations.append(f"{topo.label}: rank-local estimate "
-                              f"{run['local_rel_allocated']:+.4%} allocated")
-        runs.append(run)
-        del params, got
-        torch.cuda.empty_cache()
-    if not any(r["model"] > 1 for r in runs):
-        violations.append("no run with model > 1")
-    data_parallel = []
-    for topo, row in rows:
-        lb = b0 // (topo.pod * topo.data)
-        if topo.model == 1 and not topo.fsdp and topo.n_devices > 1 \
-                and isinstance(truths.get(lb), int):
-            data_parallel.append({
-                "topology": topo.label, "local_batch": lb,
-                "sweep_estimate": row.peak_bytes, "truth": truths[lb],
-                "rel": (row.peak_bytes - truths[lb]) / truths[lb],
-                "collectives": collective_bytes(row)})
-    emit("dense_mesh", config=cfg.name, n_layers=cfg.n_layers,
-         seq_len=TRAIN_SEQ, global_batch=b0, capacity=capacity,
-         steps=TRAIN_STEPS, ahead=ahead, data_parallel=data_parallel,
-         picks=[t.label for t, _ in picks],
-         fallback=None if fallback is None else fallback.stats, runs=runs,
-         violations=violations, memory=device_memory())
+            emit("dense_sharded_run", **run)
+            with open(Path(rows_dir) / "dense_sharded_runs.jsonl", "a") as f:
+                f.write(json.dumps(run) + "\n")
+    finally:
+        for child in serving.values():      # not reached: a run failed
+            child.kill()
+            child.wait()
+    emit("dense_sharded", config="qwen3-32b", runs=[r["run"] for r in runs],
+         note="under the fake process group the collectives move no data "
+              "and NCCL's buffers are absent; their bytes are what rank 0 "
+              "would move", violations=violations, memory=device_memory())
     if violations:
-        raise AssertionError(f"dense_mesh: {violations}")
+        raise AssertionError(f"dense_sharded: {violations}")
+
+
+def sharded_record(spec, ahead: dict, card: dict, swept, violations: list
+                   ) -> dict:
+    """One ``dense_sharded`` run's line: the card's run beside its
+    estimate made ahead, the mesh sweep's row (and ``swept``,
+    ``dense_mesh_sweep``'s row for the topology, which must equal it),
+    the local counts; each broken rule appended to ``violations``."""
+    import math
+    from repro_torch.launch import dryrun
+    label, train = spec["label"], spec["kind"] == "train"
+    launches = card.pop("launches")
+    rel_r = (ahead["estimate"] - card["reserved"]) / card["reserved"]
+    rel_a = (ahead["tensor_estimate"] - card["allocated"]) / card["allocated"]
+    sweep = ahead["sweep"]
+    sweep_rel = (sweep["peak"] - card["reserved"]) / card["reserved"]
+    run = {"run": label, "mesh": dict(zip(spec["names"], spec["dims"])),
+           "layers": spec["cfg"].n_layers, "kind": spec["kind"],
+           "seq_len": spec["shape"].seq_len,
+           "global_batch": spec["shape"].global_batch,
+           "fsdp": spec["spolicy"].fsdp,
+           "microbatches": spec["tpolicy"].microbatches if train else None,
+           "steps": spec["steps"], **card,
+           **{k: ahead[k] for k in ("estimate", "tensor_estimate",
+                                    "persistent", "argument_bytes",
+                                    "estimate_s", "depth", "collectives",
+                                    "counted")},
+           "rel_reserved": rel_r, "rel_allocated": rel_a,
+           "sweep": sweep, "sweep_rel_reserved": sweep_rel,
+           "local_flops": ahead["flops"], "local_ops": ahead["ops"],
+           "analytic_flops": dryrun.analytic_flops(
+               spec["cfg"], spec["shape"]) / spec["topology"].n_devices,
+           "kernel_launches": launches}
+    if swept is not None:
+        run["dense_mesh_sweep_row"] = swept
+        if swept != sweep["peak"]:
+            violations.append(f"{label}: the sweep row ahead "
+                              f"{sweep['peak']} B, dense_mesh_sweep's "
+                              f"{swept} B")
+    if train and not all(math.isfinite(x) for x in card["losses"]):
+        run["losses_note"] = ("the fake group's collectives return "
+                              "unwritten buffers: losses not checked")
+    if abs(rel_r) > RESERVED_TOL:
+        violations.append(f"{label}: estimate {rel_r:+.4%} reserved")
+    if abs(rel_a) > (ALLOCATED_TOL if train else SERVING_ALLOCATED_TOL):
+        violations.append(f"{label}: estimate {rel_a:+.4%} allocated")
+    if spec["group"] == "a" and sweep_rel < -RESERVED_TOL:
+        violations.append(f"{label}: the mesh sweep's estimate "
+                          f"{sweep_rel:+.4%} under the card's reserved peak")
+    if spec["kind"] == "prefill" and not launches["sm90"]:
+        violations.append(f"{label}: the sharded prefill launched no sm90 "
+                          f"kernel ({launches})")
+    return run
+
+
+def card_path(rows_dir, label: str) -> Path:
+    """Where a ``--sharded-serving`` process writes its card run."""
+    return Path(rows_dir) / f"card_{label.replace(' ', '_')}.json"
+
+
+def sharded_card_run(spec) -> dict:
+    """Rank 0 of ``spec``'s program on the card (``dryrun.run_on_card``)
+    under a ``fake`` process group of its mesh's size, with its kernel
+    launches (``launches``), or ``{"oom": ...}``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world
+    from torch.distributed.device_mesh import init_device_mesh
+    n = 1
+    for d in spec["dims"]:
+        n *= d
+    fa.reset_launches()
+    try:
+        with fake_world(n):
+            mesh = init_device_mesh("cuda", spec["dims"],
+                                    mesh_dim_names=spec["names"])
+            card = dryrun.run_on_card(dryrun.build_job(
+                spec["cfg"], spec["shape"], mesh, spec["spolicy"],
+                spec["tpolicy"]), steps=spec["steps"])
+    except torch.OutOfMemoryError as e:
+        torch.cuda.empty_cache()
+        return {"oom": f"out of memory: {str(e).splitlines()[0]}"}
+    card["launches"] = dict(fa.launches_by_kernel)
+    return card
+
+
+def sharded_serving(label: str, rows_dir: str) -> None:
+    """A serving run of ``SHARDED_RUNS`` (``label``) in a process of its
+    own, once a line on stdin says it is its turn: its card run and, for
+    the prefill, the kernel's row at rank 0's local shape; to
+    ``rows_dir``/card_<label>.json."""
+    _quiet_dtensor()
+    spec = next(s for s in sharded_specs() if s["label"] == label)
+    # imported before the turn: the import is most of a start
+    from repro_torch.launch import dryrun  # noqa: F401
+    if sys.stdin.readline().strip() != "go":
+        raise AssertionError(f"{label}: no turn on the card")
+    card = sharded_card_run(spec)
+    if spec["kind"] == "prefill" and "oom" not in card:
+        card["kernel"] = sharded_kernel_row(Path(rows_dir),
+                                            card["launches"]["sm90"])
+    card_path(rows_dir, label).write_text(json.dumps(card))
+
+
+def sharded_kernel_row(rows_dir: Path, launches: int) -> dict:
+    """The sm90 kernel at the sharded prefill's local shape
+    (``SHARDED_KERNEL_SHAPE``) against its plain version, its time, bound
+    and SDPA's; ``launches`` from the sharded prefill. Written to
+    ``rows_dir`` for the parent's ``kernels`` line."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+    got, cases, lim = serving_shape_rows(
+        "dense_sharded prefill_32k", SHARDED_KERNEL_SHAPE, ("sm90",), rand,
+        torch.nn.functional.scaled_dot_product_attention)
+    row = dict(got[0], launches=launches)
+    (rows_dir / "sharded_kernel.json").write_text(json.dumps(row))
+    emit("dense_sharded_kernel", cases=cases, row=row,
+         shape=shape_summary(SHARDED_KERNEL_SHAPE, got, lim))
+    return row
 
 
 def phase_plan_offers(cfg, policy, service, capacity: int, gate: dict,
@@ -2440,7 +2577,7 @@ def phase_plan_offers(cfg, policy, service, capacity: int, gate: dict,
         truth = truths.get(o.global_batch) if o.microbatches == 1 \
             and o.remat == cfg.remat else None
         if o.knob == "topology":
-            row["card"] = "a device's share: dense_mesh runs rank 0"
+            row["card"] = "a device's share: dense_sharded runs rank 0"
         elif not runnable:
             row["card"] = "an estimate only: neither step executes host " \
                 "offload"
@@ -3361,6 +3498,25 @@ def main() -> int:
     if sys.argv[1:2] == ["--colocate-worker"] and len(sys.argv) == 3:
         colocate_worker(sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--sharded-ahead"] and len(sys.argv) == 4:
+        sharded_ahead(sys.argv[2], sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ["--sharded-serving"] and len(sys.argv) == 4:
+        sharded_serving(sys.argv[2], sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ["--dense-sharded"] and len(sys.argv) in (3, 4):
+        # the phase alone (of GROUPS, default all), its estimates made
+        # first in this process
+        out = Path(sys.argv[2])
+        out.mkdir(parents=True, exist_ok=True)
+        groups = sys.argv[3].split(",") if len(sys.argv) == 4 else None
+        for ahead in SHARDED_AHEAD:
+            mine = [g for g in ahead.split(",")
+                    if groups is None or g in groups]
+            if mine:
+                sharded_ahead(",".join(mine), str(ahead_path(out, mine[0])))
+        phase_dense_sharded(out, groups=groups)
+        return 0
     # each training job gets a process of its own, as it would: a fresh
     # allocator whose first iteration makes cuBLAS's workspaces. They
     # start now and trace their gates on the CPU while this process
@@ -3396,6 +3552,16 @@ def main() -> int:
          serving_store])
     if mine:
         os.sched_setaffinity(ahead.pid, mine)
+
+    # rank 0's sharded programs are estimated ahead on the CPU, from the
+    # start, for the dense job's ``dense_sharded`` phase
+    sharded = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--sharded-ahead",
+         groups, str(ahead_path(rows_dir, groups[0]))])
+        for groups in SHARDED_AHEAD]
+    if mine:
+        for child in sharded:
+            os.sched_setaffinity(child.pid, theirs)
 
     def store_for(prefix: str):
         """The serving store, once the process tracing into it ends."""
@@ -3467,12 +3633,20 @@ def main() -> int:
             raise AssertionError(f"depth_compose failed: exit "
                                  f"{depth.returncode}")
         emit("depth_compose", **json.loads(depth_out.read_text()))
+        for child in sharded:
+            if child.wait(timeout=60) != 0:
+                raise AssertionError(f"sharded_ahead failed: exit "
+                                     f"{child.returncode}")
+        # the sm90 kernel at the sharded prefill's local shape, its
+        # launches from the dense job's sharded prefill
+        rows.append(json.loads((rows_dir / "sharded_kernel.json")
+                               .read_text()))
         phase_comparison({job: json.loads((rows_dir / f"{job}.json")
                                           .read_text())
                           for job in TRAIN_JOBS if job not in GATE_ONLY},
                          info)
     finally:
-        for child in (*jobs.values(), serve_plan, depth, ahead):
+        for child in (*jobs.values(), serve_plan, depth, ahead, *sharded):
             if child.poll() is None:
                 child.kill()
                 child.wait()

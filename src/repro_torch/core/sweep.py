@@ -63,8 +63,9 @@ synthesized phase carries each block's shape at its batch, so spec
 factors resolve on it as on a traced one. On the CPU:
 ``python -m repro_torch.launch.hillclimb --xmem-mesh qwen3-32b --smoke
 --device cpu --hbm-gib 0.089 --devices 2,4`` sweeps a smoke job;
-``chip_smoke.py``'s ``dense_mesh`` holds a full-width sweep's
-tensor-parallel rows against rank 0 run on the card.
+``chip_smoke.py``'s ``dense_sharded`` holds a full-width sweep's
+tensor-parallel rows against rank 0 of the sharded program run on the
+card.
 
 Use ``SweepService`` when sweeping repeatedly (the pool and trace cache
 stay warm across calls); ``estimate_many`` is the one-shot convenience.

@@ -36,6 +36,18 @@ package's ``transpose(...)`` scopes. Saved activations are freed when
 ``torch.autograd.grad`` releases the graph, which gives them their
 backward lifetimes.
 
+A sharded step (DTensor parameters and inputs, ``distributed/
+program.py``) is traced as rank 0's local program: the tracer lets
+DTensor dispatch every op that has a DTensor argument
+(``NotImplemented``) and records the ops DTensor then runs on the local
+shards, collectives included. A collective's output (the
+``_c10d_functional`` op's) is a new storage, so an allocation; its
+``wait_tensor`` returns the same storage, so it allocates nothing. The
+ops DTensor's sharding propagation runs at global shapes to learn an
+output's shape (``ShardingPropagator``'s tensor-meta pass) are run and
+not recorded (``_PROPAGATING``). A trace with no DTensor in it is
+recorded exactly as before.
+
 Nothing is allocated and no device is touched: a full-width step traces
 in seconds on a machine with no GPU. The fake tensors live on the CPU
 device; the ops the port's step runs are the same on either device, and
@@ -45,6 +57,7 @@ allocates only its output.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import weakref
 from typing import Callable, Sequence
 
@@ -103,6 +116,47 @@ _KERNEL_TEMPS = {
 }
 
 
+try:
+    _WAIT_TENSOR = torch.ops._c10d_functional.wait_tensor.default
+except (AttributeError, RuntimeError):     # no distributed build
+    _WAIT_TENSOR = None
+
+#: depth of DTensor's tensor-meta propagation on this thread: its ops
+#: run at global shapes and are not the rank's (see ``_watch_dtensor``)
+_PROPAGATING = threading.local()
+_DTENSOR_TYPES: frozenset | None = None
+
+
+def _propagating() -> bool:
+    return getattr(_PROPAGATING, "n", 0) > 0
+
+
+def _watch_dtensor() -> frozenset:
+    """The DTensor type (to hand its ops back to DTensor) and, once per
+    process, a wrapper around ``ShardingPropagator``'s uncached
+    tensor-meta pass that marks the thread while it runs."""
+    global _DTENSOR_TYPES
+    if _DTENSOR_TYPES is None:
+        try:
+            from torch.distributed.tensor import DTensor
+            from torch.distributed.tensor._sharding_prop import \
+                ShardingPropagator
+        except ImportError:        # a torch built without distributed
+            _DTENSOR_TYPES = frozenset()
+            return _DTENSOR_TYPES
+        inner = ShardingPropagator._propagate_tensor_meta_non_cached
+
+        def marked(self, *args, **kwargs):
+            _PROPAGATING.n = getattr(_PROPAGATING, "n", 0) + 1
+            try:
+                return inner(self, *args, **kwargs)
+            finally:
+                _PROPAGATING.n -= 1
+        ShardingPropagator._propagate_tensor_meta_non_cached = marked
+        _DTENSOR_TYPES = frozenset({DTensor})
+    return _DTENSOR_TYPES
+
+
 @dataclasses.dataclass
 class _Block:
     bid: int
@@ -114,6 +168,7 @@ class _Block:
     op: str = ""
     scope: str = ""
     shape: tuple | None = None
+    refs: int = 1                  # live storages that hold the block
 
 
 class TorchMemoryTracer(TorchDispatchMode):
@@ -151,6 +206,7 @@ class TorchMemoryTracer(TorchDispatchMode):
         # a step probe's step of each event (``core/loops.py``)
         self.step_labeller: Callable[[], int] | None = None
         self.step_labels: list[int] = []
+        self._dtensor = _watch_dtensor()
 
     @property
     def num_events(self) -> int:
@@ -190,6 +246,9 @@ class TorchMemoryTracer(TorchDispatchMode):
         b = self._live.pop(key, None)
         if b is None or b.pinned:
             return
+        b.refs -= 1
+        if b.refs:
+            return                 # another storage still holds it
         b.free_t = self.t
         self._emit(False, b, self._op)
 
@@ -202,8 +261,15 @@ class TorchMemoryTracer(TorchDispatchMode):
             self._new_block(t, "input", kind, scope, pinned=True))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self._dtensor and not self._dtensor.isdisjoint(types):
+            return NotImplemented       # DTensor runs it on the shards
+        if _propagating():
+            return func(*args, **(kwargs or {}))
         self._op = func._schema.name
         out = func(*args, **(kwargs or {}))
+        if func is _WAIT_TENSOR:
+            self._alias(out, args[0])
+            return out
         scope = ("backward" if torch._C._current_graph_task_id() != -1
                  else "")
         for t in pytree.tree_leaves(out):
@@ -227,6 +293,19 @@ class TorchMemoryTracer(TorchDispatchMode):
                 b.free_t = self.t
                 self._emit(False, b, self._op)
         return out
+
+    def _alias(self, out, src) -> None:
+        """``out`` holds ``src``'s block: a collective's wait returns its
+        input (on the card the same storage; a fake wait may make a new
+        one, which allocates nothing)."""
+        key = out.untyped_storage()._cdata
+        b = self._live.get(src.untyped_storage()._cdata)
+        if key in self._live or b is None:
+            return
+        b.refs += 1
+        self._live[key] = b
+        self._finalizers[key] = weakref.finalize(out.untyped_storage(),
+                                                 self._on_free, key)
 
     def finish(self, out,
                out_kinds: Sequence[BlockKind] | None = None) -> Trace:

@@ -12,14 +12,29 @@ a plain tensor, so single-device runs and the estimator's traces are
 untouched. On a ``DTensor`` inside a scope it redistributes to the
 placements the logical dims name, with the reference's divisibility
 guard: a dim that does not divide its axes stays unsharded.
+
+The rest of this module runs the model's ops on DTensors where
+DTensor's own sharding rules would fail or gather: the products as
+Megatron runs them (:func:`linear`), fsdp's gather of a layer's weights
+(:func:`gathered`), the vocab-sharded embedding (:func:`embedding`), a
+projection split into heads (:func:`split_last`), attention on each
+rank's own heads (:func:`local_heads`) and a plain constant beside a
+DTensor operand (:func:`replicated`). Each leaves plain tensors to the
+plain code path, op for op.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import threading
 
 _BINDING: contextvars.ContextVar = contextvars.ContextVar(
     "logical_axis_binding", default=None)
+# every open scope's binding, for threads that do not see the context
+# variable: the autograd engine runs a CUDA backward, and so a
+# checkpoint's recompute, on a device thread of its own
+_SCOPES: list = []
+_SCOPES_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -28,20 +43,34 @@ def logical_axis_rules(mesh, rules: dict[str, tuple[str, ...] | str]):
     of ``mesh`` (a ``DeviceMesh``).
 
     Rules values may name axes absent from the mesh: they are filtered,
-    so the same rule set serves single-pod and multi-pod meshes.
-    """
-    names = tuple(mesh.mesh_dim_names or ())
-    filtered = {}
-    for name, axes in rules.items():
-        if isinstance(axes, str):
-            axes = (axes,)
-        axes = tuple(a for a in axes if a in names)
-        filtered[name] = axes if len(axes) != 1 else axes[0]
-    token = _BINDING.set((mesh, filtered))
+    so the same rule set serves single-pod and multi-pod meshes. The
+    binding holds in this context and, while the scope is open, in any
+    thread that has no binding of its own (the autograd engine's)."""
+    binding = (mesh, {name: (axes,) if isinstance(axes, str)
+                      else tuple(axes) for name, axes in rules.items()})
+    token = _BINDING.set(binding)
+    with _SCOPES_LOCK:
+        _SCOPES.append(binding)
     try:
         yield
     finally:
         _BINDING.reset(token)
+        with _SCOPES_LOCK:
+            _SCOPES.remove(binding)
+
+
+def _bound():
+    """The ``(mesh, rules)`` in force here, or None."""
+    b = _BINDING.get()
+    if b is None and _SCOPES:
+        b = _SCOPES[-1]
+    return b
+
+
+def _axes(rules: dict, name: str, mesh) -> tuple:
+    """The axes of ``mesh`` that logical ``name`` binds to."""
+    names = tuple(mesh.mesh_dim_names or ())
+    return tuple(a for a in rules.get(name, ()) if a in names)
 
 
 DEFAULT_RULES = {
@@ -55,27 +84,232 @@ DEFAULT_RULES = {
 
 def constrain(x, logical_dims: tuple):
     """Apply a sharding constraint by logical dim names (None = any)."""
-    bound = _BINDING.get()
+    bound = _bound()
     if bound is None:
         return x
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
     from .sharding import P, to_placements
-    mesh, rules = bound
+    mesh, rules = x.device_mesh, bound[1]
     names = tuple(mesh.mesh_dim_names or ())
     spec = []
     for i, d in enumerate(logical_dims):
-        if d is None:
-            spec.append(None)
-            continue
-        axes = rules.get(d, ())
+        axes = _axes(rules, d, mesh) if d is not None else ()
         if not axes:
             spec.append(None)
             continue
         # divisibility guard
         total = 1
-        for a in (axes if isinstance(axes, tuple) else (axes,)):
+        for a in axes:
             total *= mesh.size(names.index(a))
-        spec.append(None if x.shape[i] % total else axes)
+        spec.append(None if x.shape[i] % total
+                    else axes if len(axes) > 1 else axes[0])
     return x.redistribute(mesh, to_placements(P(*spec), mesh))
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def replicated(t, like):
+    """``t``, a plain tensor (a constant: rope angles, positions, a
+    zero count), as a DTensor replicated over the mesh of ``like``
+    when ``like`` is a DTensor; else ``t`` itself."""
+    if not is_dtensor(like):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def coordinate(mesh, dim: int) -> int:
+    """This rank's index along mesh dimension ``dim``."""
+    return mesh.get_coordinate()[dim]
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for d in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= int(d)
+    return tuple(reversed(stride))
+
+
+def from_local(local, mesh, placements, shape):
+    """A DTensor of global ``shape`` (contiguous) over ``local``."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, mesh, list(placements), run_check=False,
+                              shape=tuple(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` for attention in the model layout (q [B, S, H,
+    hd], k/v [B, S, Hkv, hd]) run by each rank on its own batch rows and
+    query heads, with no collective.
+
+    Plain tensors go straight to ``fn``. For DTensors, a mesh dim that
+    shards q's batch (dim 0) or heads (dim 2) keeps that placement;
+    anything else (a sequence shard, a partial) is made replicated
+    first, and k/v follow q. Where q's heads are sharded and k/v's are
+    replicated (kv heads that do not divide the axis), rank ``r`` of
+    ``m`` holds query heads ``r H/m`` onward, and their kv heads start
+    at ``(r H/m) // G``: each rank slices those and calls ``fn`` with
+    its local group size. The gradient of that slice is partial over
+    the axis (each rank adds its heads' share). The output has q's
+    placements."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    qp, kp, sliced = [], [], None
+    for i, (a, b) in enumerate(zip(q.placements, k.placements)):
+        a = a if a in (Shard(0), Shard(2)) else Replicate()
+        qp.append(a)
+        if a == Shard(2) and b != Shard(2):
+            if sliced is not None:
+                raise ValueError("query heads sharded over two mesh dims")
+            sliced = i
+            kp.append(Replicate())
+        else:
+            kp.append(a)
+    q, k, v = (q.redistribute(mesh, qp), k.redistribute(mesh, kp),
+               v.redistribute(mesh, kp))
+    grad_kp = [Partial() if i == sliced else p for i, p in enumerate(kp)]
+    ql = q.to_local()
+    kl = k.to_local(grad_placements=grad_kp)
+    vl = v.to_local(grad_placements=grad_kp)
+    if sliced is not None:
+        G = q.shape[2] // k.shape[2]
+        hl = ql.shape[2]
+        if hl % G and G % hl:
+            raise ValueError(f"{hl} local query heads do not group over "
+                             f"kv groups of {G}")
+        lo, n = coordinate(mesh, sliced) * hl // G, max(hl // G, 1)
+        kl, vl = kl[:, :, lo:lo + n], vl[:, :, lo:lo + n]
+    out = fn(ql, kl, vl)
+    return from_local(out, mesh, qp, tuple(q.shape[:3]) + tuple(out.shape[3:]))
+
+
+def split_last(x, shape):
+    """``x.reshape(shape)`` where ``shape`` splits ``x``'s last dim (a
+    projection's heads x head dim). A DTensor sharded over that dim
+    more ways than the first new dim divides is gathered over those
+    mesh dims first (DTensor will not unflatten an uneven shard)."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        last = Shard(x.ndim - 1)
+        n = shape[x.ndim - 1]
+        pl = [Replicate() if p == last and n % x.device_mesh.size(i)
+              else p for i, p in enumerate(x.placements)]
+        if pl != list(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return x.reshape(shape)
+
+
+def _batch_dims(mesh) -> set:
+    """Mesh dims of the bound scope's batch axes (the data-parallel and
+    fsdp axes)."""
+    bound = _bound()
+    if bound is None:
+        return set()
+    names = tuple(mesh.mesh_dim_names or ())
+    return {names.index(a) for a in _axes(bound[1], "batch", mesh)}
+
+
+def gathered(tree):
+    """``tree`` (a layer's weights) with every DTensor leaf gathered
+    over the batch axes, where fsdp shards it: the all-gather FSDP does
+    before a layer runs, inside the layer's checkpoint, so the backward
+    gathers again and reduce-scatters the gradient. Model-axis shards
+    stay. A tree of plain tensors comes back as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.utils import _pytree as pytree
+    leaves = pytree.tree_leaves(tree)
+    if not leaves or not isinstance(leaves[0], DTensor):
+        return tree
+
+    def gather(t):
+        dims = _batch_dims(t.device_mesh)
+        pl = [Replicate() if i in dims else p
+              for i, p in enumerate(t.placements)]
+        return t if pl == list(t.placements) else \
+            t.redistribute(t.device_mesh, pl)
+    return pytree.tree_map(gather, tree)
+
+
+def embedding(ids, table):
+    """``F.embedding(ids, table)`` of a DTensor table sharded over the
+    vocab (dim 0): each rank looks up the ids its vocab range holds
+    (zeros elsewhere) and a sum over the vocab axes completes the rows.
+    The table is gathered over the batch axes first (fsdp), and its
+    gradient is partial there (each data rank adds its rows'). The
+    output is batch-sharded and replicated over the rest."""
+    import torch
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    bdims = _batch_dims(mesh)
+    vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)
+             and i not in bdims]
+    tpl = [Shard(0) if i in vocab else Replicate()
+           for i in range(mesh.ndim)]
+    table = table.redistribute(mesh, tpl)
+    idpl = [p if p == Shard(0) and i in bdims else Replicate()
+            for i, p in enumerate(ids.placements)]
+    ids = ids.redistribute(mesh, idpl)
+    grad_pl = [Partial() if i in bdims else p for i, p in enumerate(tpl)]
+    local = table.to_local(grad_placements=grad_pl)
+    lid = ids.to_local().long()
+    Vl = local.shape[0]
+    lo = 0
+    for i in vocab:
+        lo = lo * mesh.size(i) + coordinate(mesh, i)
+    lo *= Vl
+    inside = (lid >= lo) & (lid < lo + Vl)
+    x = F.embedding(torch.where(inside, lid - lo, 0), local)
+    x = x * inside[..., None].to(x.dtype)
+    out_pl = [Partial() if i in vocab else p for i, p in enumerate(idpl)]
+    out = from_local(x, mesh, out_pl, tuple(ids.shape) + (local.shape[1],))
+    return out.redistribute(mesh, idpl)
+
+
+def linear(x, w):
+    """``x @ w`` for a 2-D weight ``w`` [K, N], as Megatron runs it on
+    DTensors: each rank multiplies its local shards, and the mesh dims
+    decide the rest. Where ``w`` is column-parallel (``Shard(1)``) x is
+    replicated and the output is sharded on its last dim; where ``w`` is
+    row-parallel (``Shard(0)``) x is sharded on its last dim and the
+    output is a partial sum (a caller makes it whole with
+    :func:`constrain`); where ``w`` is replicated, x keeps a batch
+    shard. The gradients are declared on the same terms (x's partial
+    over a column-parallel axis, w's partial over the batch axes), so
+    the backward needs no sharding rule of DTensor's and gathers no
+    activation. Plain tensors: ``x @ w``."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = w.device_mesh
+    last = Shard(x.ndim - 1)
+    xp, xg, wg, op = [], [], [], []
+    for a, b in zip(x.placements, w.placements):
+        if b == Shard(1):                  # column-parallel
+            xp.append(Replicate())
+            xg.append(Partial())
+            op.append(last)
+        elif b == Shard(0):                # row-parallel
+            xp.append(last)
+            xg.append(last)
+            op.append(Partial())
+        else:
+            keep = a if a == Shard(0) and x.ndim > 1 else Replicate()
+            xp.append(keep)
+            xg.append(keep)
+            op.append(keep)
+        wg.append(Partial() if xp[-1] == Shard(0) else b)
+    x = x.redistribute(mesh, xp)
+    y = x.to_local(grad_placements=xg) @ w.to_local(grad_placements=wg)
+    return from_local(y, mesh, op, tuple(x.shape[:-1]) + (w.shape[-1],))

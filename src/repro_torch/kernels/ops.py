@@ -9,6 +9,14 @@ one does not pad the sequence. A head dim that no kernel takes (kimi-k2's
 stays ``1/sqrt(hd)``, and the padded output columns are sliced off. The
 padding happens here, outside the operator, so the memory tracer sees
 the padded copies as ordinary op outputs.
+
+DTensor inputs (a sharded run) take the operator's sharding rule,
+``act_sharding.local_heads``: each rank launches the kernel on its own
+batch rows and query heads, with no collective; where the kv heads do
+not divide the model axis and k/v are replicated, the rank slices the
+kv heads its query heads group over and launches with its local group
+size. The kernel sees plain local tensors, so on the card it launches
+(and counts) as on one device.
 """
 from __future__ import annotations
 
@@ -22,6 +30,10 @@ from .flash_attention import flash_attention_bhsd, padded_head_dim
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None):
     """Model-layout entry point: q [B, S, H, hd], k/v [B, S, Hkv, hd]."""
+    from ..distributed.act_sharding import is_dtensor, local_heads
+    if is_dtensor(q):
+        return local_heads(lambda q, k, v: flash_attention(
+            q, k, v, causal=causal, window=window), q, k, v)
     d = q.shape[-1]
     dp = padded_head_dim(q.dtype, d)
     if dp != d:

@@ -8,17 +8,44 @@ initialized ``torch.distributed`` process group of the mesh's size
 on a machine announces a cluster). Single-pod: 16x16 (data, model).
 Multi-pod: 2x16x16 (pod, data, model); the ``pod`` axis carries data
 parallelism across pods (gradient all-reduce crosses pods; TP/EP stay
-inside a pod).
+inside a pod). ``fake_world`` gives that group for a dry run: rank 0
+of a ``fake`` group of the mesh's size.
 """
 from __future__ import annotations
+
+import contextlib
 
 
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda"):
     from torch.distributed.device_mesh import init_device_mesh
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = production_shape(multi_pod)
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """Rank 0 of a ``fake`` process group of ``world_size`` ranks, torn
+    down on exit. Its collectives return outputs of the right shape and
+    move no data (no NCCL, no buffers of its own): one process runs or
+    traces rank 0's share of a mesh of that size, on the CPU or on one
+    card. An initialized group is an error (one group a process)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def production_shape(multi_pod: bool) -> tuple:
+    """(shape, axis names) of the production mesh."""
+    return (((2, 16, 16), ("pod", "data", "model")) if multi_pod
+            else ((16, 16), ("data", "model")))
 
 
 def make_smoke_mesh(devices: int | None = None, device_type: str = "cpu"):

@@ -12,6 +12,15 @@ Conventions, as in the JAX package:
   ``attention.impl == "flash"`` routes to the hand-written Hopper
   kernel (``repro_torch.kernels``), which replaces the Pallas kernel
   and, like it, is forward-only (serving).
+
+Under DTensor (a sharded dry run, ``launch/dryrun.py``) the same code
+runs on DTensor parameters and inputs. Where DTensor's own rules would
+fail or gather, the ops take a sharded path of their own: constants are
+replicated DTensors (``act_sharding.replicated``), attention runs on
+each rank's heads (``act_sharding.local_heads``), decode attends a
+sequence-sharded KV cache by combining each rank's softmax statistics,
+and the loss reduces vocab-sharded logits without gathering them. Plain
+tensors never reach those paths.
 """
 from __future__ import annotations
 
@@ -22,6 +31,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import AttentionConfig
+from ..distributed.act_sharding import (constrain, coordinate, from_local,
+                                        is_dtensor, linear, local_heads,
+                                        replicated, split_last)
 from .steps import cat_steps, step_range
 
 
@@ -47,6 +59,7 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     else:
         ang = positions[..., None].float() * freqs
         ang = ang[:, :, None, :]                            # [B, S, 1, hd/2]
+    ang = replicated(ang, x)
     sin, cos = torch.sin(ang), torch.cos(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -54,8 +67,9 @@ def apply_rope(x, positions, theta: float = 10_000.0):
 
 
 def swiglu(x, w_gate, w_up, w_down):
-    h = F.silu(x @ w_gate) * (x @ w_up)
-    return h @ w_down
+    h = F.silu(linear(x, w_gate)) * linear(x, w_up)
+    # row-parallel: the partial sums over the model axis made whole
+    return constrain(linear(h, w_down), ("batch", None, None))
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +207,6 @@ def attention_forward(q, k, v, acfg: AttentionConfig, *, causal=True,
     (``constrain``: the identity outside a bound mesh scope). Unlike
     the JAX ``"pallas"`` branch, the ``"flash"`` branch honours
     ``is_global``: a global layer gets no window."""
-    from ..distributed.act_sharding import constrain
     if acfg.repeat_kv_for_tp and k.shape[2] != q.shape[2]:
         G = q.shape[2] // k.shape[2]
         k = k.repeat_interleave(G, dim=2)
@@ -208,11 +221,12 @@ def attention_forward(q, k, v, acfg: AttentionConfig, *, causal=True,
         return kops.flash_attention(q, k, v, causal=causal,
                                     window=None if is_global else window)
     if impl == "dense" or (impl == "auto" and S <= acfg.dense_threshold):
-        return dense_attention(q, k, v, causal=causal, window=window,
-                               is_global=is_global)
-    return chunked_attention(q, k, v, causal=causal, window=window,
-                             is_global=is_global, chunk_q=acfg.chunk_q,
-                             chunk_kv=acfg.chunk_kv)
+        return local_heads(lambda q, k, v: dense_attention(
+            q, k, v, causal=causal, window=window, is_global=is_global),
+            q, k, v)
+    return local_heads(lambda q, k, v: chunked_attention(
+        q, k, v, causal=causal, window=window, is_global=is_global,
+        chunk_q=acfg.chunk_q, chunk_kv=acfg.chunk_kv), q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -250,9 +264,9 @@ def attention_block_params(gen, d_model, n_heads, n_kv_heads, hd, dtype,
 def attention_block(x, params, acfg: AttentionConfig, n_heads, n_kv_heads,
                     hd, *, positions=None, is_global=None, window=None):
     B, S, D = x.shape
-    q = (x @ params["wq"]).reshape(B, S, n_heads, hd)
-    k = (x @ params["wk"]).reshape(B, S, n_kv_heads, hd)
-    v = (x @ params["wv"]).reshape(B, S, n_kv_heads, hd)
+    q = split_last(linear(x, params["wq"]), (B, S, n_heads, hd))
+    k = split_last(linear(x, params["wk"]), (B, S, n_kv_heads, hd))
+    v = split_last(linear(x, params["wv"]), (B, S, n_kv_heads, hd))
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -262,7 +276,8 @@ def attention_block(x, params, acfg: AttentionConfig, n_heads, n_kv_heads,
     k = apply_rope(k, positions, acfg.rope_theta)
     o = attention_forward(q, k, v, acfg, causal=True, window=window,
                           is_global=is_global)
-    return o.reshape(B, S, n_heads * hd) @ params["wo"], (k, v)
+    return constrain(linear(o.reshape(B, S, n_heads * hd), params["wo"]),
+                     ("batch", None, None)), (k, v)
 
 
 def attention_decode_block(x, params, acfg: AttentionConfig, n_heads,
@@ -275,21 +290,105 @@ def attention_decode_block(x, params, acfg: AttentionConfig, n_heads,
     That saves one full cache copy per step, so the port's decode
     estimate is lower than the JAX package's by design."""
     B, S, D = x.shape  # S == 1
-    q = (x @ params["wq"]).reshape(B, S, n_heads, hd)
-    k = (x @ params["wk"]).reshape(B, S, n_kv_heads, hd)
-    v = (x @ params["wv"]).reshape(B, S, n_kv_heads, hd)
+    q = split_last(linear(x, params["wq"]), (B, S, n_heads, hd))
+    k = split_last(linear(x, params["wk"]), (B, S, n_kv_heads, hd))
+    v = split_last(linear(x, params["wv"]), (B, S, n_kv_heads, hd))
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
     pos = torch.full((S,), cache_len, dtype=torch.int32, device=x.device)
     q = apply_rope(q, pos, acfg.rope_theta)
     k = apply_rope(k, pos, acfg.rope_theta)
+    if is_dtensor(k_cache):
+        o = _decode_sharded(q, k, v, k_cache, v_cache, cache_len,
+                            window=window, is_global=is_global)
+        return (constrain(linear(o.reshape(B, S, n_heads * hd),
+                                 params["wo"]), ("batch", None, None)),
+                k_cache, v_cache)
     k_cache[:, cache_len:cache_len + S].copy_(k)
     v_cache[:, cache_len:cache_len + S].copy_(v)
     o = decode_attention(q, k_cache, v_cache, cache_len + 1, window=window,
                          is_global=is_global)
     return (o.reshape(B, S, n_heads * hd) @ params["wo"],
             k_cache, v_cache)
+
+
+def _seq_shard(cache) -> int | None:
+    """The mesh dim that shards a DTensor cache [B, S, Hkv, hd] over its
+    positions (dim 1), or None."""
+    from torch.distributed.tensor import Shard
+    dims = [i for i, p in enumerate(cache.placements) if p == Shard(1)]
+    if len(dims) > 1:
+        raise ValueError("a KV cache sharded over positions on two mesh "
+                         "dims")
+    return dims[0] if dims else None
+
+
+def _decode_sharded(q, k, v, k_cache, v_cache, cache_len: int, *,
+                    window=None, is_global=None):
+    """Decode attention on DTensors: write the new key and value into
+    the rank's shard of the caches (in place), then attend.
+
+    A cache sharded over heads runs ``decode_attention`` on each rank's
+    heads (``local_heads``). A cache sharded over positions (kv heads
+    that do not divide the axis) holds positions ``[r Sl, (r+1) Sl)`` on
+    rank ``r``: only the rank that holds ``cache_len`` writes; each
+    rank attends every query head to its own positions and keeps the
+    softmax's running max, denominator and weighted sum; a max and two
+    sums over the axis combine them (flash-decoding). The query heads
+    are gathered over that axis first (one token's worth)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = k_cache.device_mesh
+    j = _seq_shard(k_cache)
+    S = k.shape[1]
+    new_pl = [Replicate() if i == j else p
+              for i, p in enumerate(k_cache.placements)]
+    kc, vc = k_cache.to_local(), v_cache.to_local()
+    Sl = kc.shape[1]
+    lo = 0 if j is None else coordinate(mesh, j) * Sl
+    a, b = max(cache_len, lo), min(cache_len + S, lo + Sl)
+    if a < b:
+        kl = k.redistribute(mesh, new_pl).to_local()
+        vl = v.redistribute(mesh, new_pl).to_local()
+        kc[:, a - lo:b - lo].copy_(kl[:, a - cache_len:b - cache_len])
+        vc[:, a - lo:b - lo].copy_(vl[:, a - cache_len:b - cache_len])
+    if j is None:
+        return local_heads(lambda q, kc, vc: decode_attention(
+            q, kc, vc, cache_len + 1, window=window, is_global=is_global),
+            q, k_cache, v_cache)
+    q_pl = [Shard(0) if p == Shard(0) else Replicate()
+            for p in k_cache.placements]
+    ql = q.redistribute(mesh, q_pl).to_local()
+    Bl, _, H, hd = ql.shape
+    Hkv = kc.shape[2]
+    G = H // Hkv
+    qg = ql.reshape(Bl, 1, Hkv, G, hd)
+    s = _grouped_scores(qg, kc)[..., 0, :] / math.sqrt(hd)   # [B,Hkv,G,Sl]
+    kv_pos = torch.arange(lo, lo + Sl, device=ql.device)
+    ok = kv_pos < cache_len + 1
+    if window is not None and not is_global:
+        ok &= kv_pos >= (cache_len + 1 - window)
+    s = s.masked_fill(~ok, float("-inf"))
+    m = s.amax(dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(s - m_safe[..., None])
+    p = torch.where(torch.isfinite(s), p, 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, vc.float())
+    stat = [Partial(reduce_op="max") if i == j else pl
+            for i, pl in enumerate(q_pl)]
+    gm = from_local(m_safe, mesh, stat, (q.shape[0],) + m.shape[1:])
+    gm = gm.redistribute(mesh, q_pl).to_local()
+    corr = torch.exp(m_safe - gm)
+    psum = [Partial() if i == j else pl for i, pl in enumerate(q_pl)]
+    gl = from_local(l * corr, mesh, psum, (q.shape[0],) + l.shape[1:])
+    go = from_local(o * corr[..., None], mesh, psum,
+                    (q.shape[0],) + o.shape[1:])
+    gl = gl.redistribute(mesh, q_pl).to_local()
+    go = go.redistribute(mesh, q_pl).to_local()
+    out = (go / torch.clamp(gl[..., None], min=1e-30))
+    out = out.reshape(Bl, 1, H, hd).to(ql.dtype)
+    return from_local(out, mesh, q_pl, q.shape)
 
 
 def mlp_params(gen, d_model, d_ff, dtype, *, device, lead=()):
@@ -316,9 +415,79 @@ def cross_entropy_loss(logits, labels, ignore_index: int = -1):
     one-hot tensor. ``log_softmax`` keeps only its output for the
     backward, so the f32 copy of the logits dies in the forward. The
     f32 logits carry the reference's vocab-sharding anchor."""
-    from ..distributed.act_sharding import constrain
     ldims = ("batch",) + (None,) * (logits.ndim - 2) + ("vocab",)
+    if is_dtensor(logits):
+        return _cross_entropy_sharded(constrain(logits.float(), ldims),
+                                      labels, ignore_index)
     logp = torch.log_softmax(constrain(logits.float(), ldims), dim=-1)
     picked = torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])
     mask = (labels != ignore_index).float()
     return -(picked[..., 0] * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def _cross_entropy_sharded(logits, labels, ignore_index: int):
+    """``cross_entropy_loss`` of f32 DTensor logits sharded over the
+    vocab, on each rank's shard: ``lse - logit[label]`` per token, where
+    the log-sum-exp takes a max and a sum of each rank's row statistics
+    over the vocab axes (no [B, S, V] gather) and each label's logit is
+    picked by the rank whose vocab range holds it (a sum over the
+    axes). The row statistics are the only tensors that cross ranks.
+    The same number as the plain path's log-softmax and gather, and, as
+    there, one [B, S, V/m] f32 tensor kept for the backward, which
+    becomes the gradient in place (``_VocabParallelNLL``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = logits.device_mesh
+    vdim = logits.ndim - 1
+    pl = [p if p in (Shard(0), Shard(vdim)) else Replicate()
+          for p in logits.placements]
+    logits = logits.redistribute(mesh, pl)
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in pl]
+    vocab = [i for i, p in enumerate(pl) if p == Shard(vdim)]
+    row_shape = tuple(logits.shape[:-1])
+
+    def reduce(t, op="sum"):
+        """A row statistic of this rank's shard, over the vocab axes."""
+        part = [Partial(op) if i in vocab else p for i, p in enumerate(rows)]
+        return from_local(t, mesh, part, row_shape).redistribute(
+            mesh, rows).to_local()
+    lab = labels.redistribute(mesh, rows).to_local()
+    lo = 0
+    for i in vocab:
+        lo = lo * mesh.size(i) + coordinate(mesh, i)
+    x = logits.to_local()
+    nll = _VocabParallelNLL.apply(x, lab, lo * x.shape[-1], reduce)
+    mask = (lab != ignore_index).float()
+    total = [Partial() if p == Shard(0) else Replicate() for p in rows]
+    num = from_local((nll * mask).sum(), mesh, total, ())
+    den = from_local(mask.sum(), mesh, total, ())
+    return num / den.clamp(min=1.0)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token ``lse - logit[label]`` of one rank's vocab shard ``x``
+    [..., V/m] (f32), its vocab starting at ``lo``; ``reduce(t, op)``
+    combines a row statistic over the vocab axes. The backward is
+    ``softmax - onehot`` in the forward's ``exp`` buffer: one gradient
+    tensor and no sum of two (a dispatch mode makes autograd sum out of
+    place, so two paths into ``x`` would cost a third copy)."""
+
+    @staticmethod
+    def forward(ctx, x, lab, lo, reduce):
+        V = x.shape[-1]
+        m = reduce(x.amax(dim=-1), "max")
+        e = (x - m[..., None]).exp_()
+        se = reduce(e.sum(dim=-1))
+        ids = lab.clamp(min=0).long()
+        inside = (ids >= lo) & (ids < lo + V)
+        idx = torch.where(inside, ids - lo, 0)[..., None]
+        picked = reduce(torch.where(inside, torch.gather(x, -1, idx)[..., 0],
+                                    0.0))
+        ctx.save_for_backward(e, se, idx, inside)
+        return se.log() + m - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        e, se, idx, inside = ctx.saved_tensors
+        grad = e.div_(se[..., None])
+        grad.scatter_add_(-1, idx, -inside[..., None].to(grad.dtype))
+        return grad.mul_(g[..., None]), None, None, None

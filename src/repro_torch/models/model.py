@@ -41,6 +41,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from ..distributed.act_sharding import gathered
 from . import mamba as mam
 from . import moe as moe_mod
 from . import xlstm as xl
@@ -244,6 +245,7 @@ def layer_params(layers: dict, i) -> dict:
 
 def _decoder_layer(x, lp, cfg: ModelConfig, *, is_global=None,
                    positions=None):
+    lp = gathered(lp)
     window = cfg.attention.sliding_window
     h, _ = attention_block(
         rms_norm(x, lp["ln1"]), lp["attn"], cfg.attention, cfg.n_heads,
@@ -378,6 +380,9 @@ def embed_inputs(params, batch: dict, cfg: ModelConfig):
         return torch.cat([batch["patch_embeds"].to(cfg.dtype), text], dim=1)
     if cfg.family == "audio":
         return _embed_codes(params["embed"], batch["codes"])
+    from ..distributed.act_sharding import embedding, is_dtensor
+    if is_dtensor(params["embed"]):
+        return embedding(batch["tokens"], params["embed"])
     return F.embedding(batch["tokens"], params["embed"])
 
 
@@ -396,13 +401,16 @@ def _embed_codes(embed, codes):
 def logits_fn(params, h, cfg: ModelConfig):
     """h [B, S, D] -> logits [B, S, V], or [B, S, K, V] for audio; the
     [B, S, V] product carries the reference's vocab-sharding anchor."""
-    from ..distributed.act_sharding import constrain
+    from ..distributed.act_sharding import constrain, linear
     K = cfg.num_codebooks
+    params = {k: gathered(params[k]) for k in ("embed", "head")
+              if k in params}
     if cfg.tie_embeddings:
         if K:
             return torch.einsum("bsd,kvd->bskv", h, params["embed"])
-        return constrain(h @ params["embed"].T, ("batch", None, "vocab"))
-    out = constrain(h @ params["head"], ("batch", None, "vocab"))
+        return constrain(linear(h, params["embed"].T),
+                         ("batch", None, "vocab"))
+    out = constrain(linear(h, params["head"]), ("batch", None, "vocab"))
     if K:
         return out.reshape(*h.shape[:2], K, cfg.padded_vocab)
     return out
@@ -515,6 +523,7 @@ def decode_step(params, cache: dict, batch: dict, cache_len: int,
         for i, lp in enumerate(_decode_layers(params, cfg)):
             if i % unit == 0:
                 _mark()
+            lp = gathered(lp)
             a_out, _, _ = attention_decode_block(
                 rms_norm(x, lp["ln1"]), lp["attn"], cfg.attention,
                 cfg.n_heads, cfg.n_kv_heads, cfg.hd, cache["k"][i],

@@ -28,6 +28,8 @@ from typing import Any, Callable
 import torch
 from torch.utils import _pytree as pytree
 
+from ..distributed.act_sharding import is_dtensor, replicated
+
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
@@ -37,13 +39,19 @@ class Optimizer:
 
 
 def _zeros32(p: torch.Tensor) -> torch.Tensor:
+    """f32 zeros shaped like ``p`` (a DTensor's with its placements)."""
+    if is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
 def _count0(params) -> torch.Tensor:
+    """The 0-d int32 step count: replicated over the mesh of DTensor
+    parameters."""
     leaves = pytree.tree_leaves(params)
     device = leaves[0].device if leaves else "cpu"
-    return torch.zeros((), dtype=torch.int32, device=device)
+    count = torch.zeros((), dtype=torch.int32, device=device)
+    return replicated(count, leaves[0]) if leaves else count
 
 
 def _leaves(*trees):

@@ -28,8 +28,10 @@ from torch.utils import _pytree as pytree
 
 from ..configs.base import ModelConfig
 from ..core.depth import with_depth_plan
+from ..distributed.act_sharding import from_local, is_dtensor
 from ..models import model as M
-from .optimizer import Optimizer, clip_by_global_norm, get_optimizer
+from .optimizer import (Optimizer, _zeros32, clip_by_global_norm,
+                        get_optimizer)
 
 
 def params_at(cfg: ModelConfig, trees: list) -> list:
@@ -72,6 +74,11 @@ def make_fwd_bwd(cfg: ModelConfig, microbatches: int = 1) -> Callable:
         grads = [g if g is not None else
                  p.grad if p.grad is not None else torch.zeros_like(p)
                  for g, p in zip(got, leaves)]
+        if is_dtensor(loss):
+            # a sharded step reduces each gradient to its parameter's
+            # layout (the reduce-scatter or all-reduce of FSDP and DDP)
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     for g, p in zip(grads, leaves)]
         return loss.detach(), pytree.tree_unflatten(grads, spec)
 
     def at(c):
@@ -81,9 +88,7 @@ def make_fwd_bwd(cfg: ModelConfig, microbatches: int = 1) -> Callable:
     n = microbatches
 
     def fwd_bwd_accum(params, batch):
-        acc = pytree.tree_map(
-            lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device), params)
+        acc = pytree.tree_map(_zeros32, params)
         acc_leaves = pytree.tree_leaves(acc)
         loss_sum = None
         for micro in _split_microbatches(batch, n):
@@ -100,14 +105,28 @@ def make_fwd_bwd(cfg: ModelConfig, microbatches: int = 1) -> Callable:
 
 
 def _split_microbatches(batch: dict, n: int) -> list[dict]:
-    """``n`` microbatches of ``batch``, as views along the batch dim."""
+    """``n`` microbatches of ``batch``, as views along the batch dim.
+
+    A DTensor batch sharded over its rows is split on each rank's own
+    rows: microbatch ``k`` is the ``k``-th slice of every rank's shard,
+    sharded as the batch is. (Split globally, a microbatch would be
+    replicated unless ``n`` divided the mesh, and every rank would run
+    all of it.)"""
     for x in pytree.tree_leaves(batch):
-        if x.shape[0] % n:
+        local = x.to_local() if is_dtensor(x) else x
+        if local.shape[0] % n:
             raise ValueError(f"batch {x.shape[0]} not divisible by {n} "
                              f"microbatches")
-    return [pytree.tree_map(
-        lambda x: x.reshape((n, x.shape[0] // n) + x.shape[1:])[k], batch)
-        for k in range(n)]
+
+    def split(x, k):
+        if is_dtensor(x):
+            local = x.to_local()
+            part = local.reshape((n, local.shape[0] // n)
+                                 + local.shape[1:])[k]
+            return from_local(part, x.device_mesh, x.placements,
+                              (x.shape[0] // n,) + tuple(x.shape[1:]))
+        return x.reshape((n, x.shape[0] // n) + x.shape[1:])[k]
+    return [pytree.tree_map(lambda x: split(x, k), batch) for k in range(n)]
 
 
 def _optimizer_and_update(policy: TrainPolicy) -> tuple[Optimizer, Callable]:
