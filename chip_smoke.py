@@ -13,9 +13,9 @@ non-zero:
    the card;
 0a. sharded_ahead — two processes beside them, from the start
    (``--sharded-ahead GROUPS OUT``, no card): each of ``dense_sharded``'s
-   runs estimated as rank 0's program on the CPU (the xMem estimate of
-   its local trace, composed past 9 layers; its local counts) and the
-   mesh sweep's row for its topology;
+   and ``moe_sharded``'s runs estimated as rank 0's program on the CPU
+   (the xMem estimate of its local trace, composed past 9 layers; its
+   local counts) and the mesh sweep's row for its topology;
 0b. depth_compose — in a process of its own beside them, from the start
    (``--depth-compose OUT``, no card): the vlm and audio training
    estimates (24 and 16 layers) from traces composed of probes at 2, 3
@@ -160,10 +160,10 @@ non-zero:
    data; NCCL's buffers are absent) with real local shards on the card:
    the pure tensor-parallel 1x1x2 and 1x1x4 (4 layers, batch 8, 3 AdamW
    steps), TRAIN_4K on the 16x16 production mesh (fsdp, AdamW, 4
-   microbatches, 64 layers cut to 16, 3 steps), and the serving cut's 8
+   microbatches, 64 layers cut to 4, 3 steps), and the serving cut's 8
    layers at PREFILL_32K (the sm90 kernel on each rank's heads) and
    DECODE_32K; each run's estimate was made ahead on the CPU
-   (``--sharded-ahead``, two processes from the start) from rank 0's
+   (``--sharded-ahead``, processes from the start) from rank 0's
    local trace, and each is printed beside the card's reserved and
    allocated peaks, with the mesh sweep's row for its topology, the
    local FLOPs beside the analytic count, and the collective bytes by
@@ -174,7 +174,19 @@ non-zero:
    the paper's optimizer axis, where DNNMem's estimate stays put;
 10. moe_train — the same in a child of its own (``--train moe``) for
    phi3.5-moe at full width, sequences of 4096, depth cut to 3 layers
-   (``moe_train_gate``, ``moe_train``, ``moe_train_requests``);
+   (``moe_train_gate``, ``moe_train``, ``moe_train_requests``), then
+   ``moe_sharded``: rank 0 of phi3.5-moe's sharded programs, as
+   ``dense_sharded`` runs qwen3-32b's, expert-parallel over ``model``
+   (each rank routes its own tokens over all experts, gathers only its
+   own experts' capacity rows and combines them in f32, one all-reduce
+   over ``model``; no all-to-all): 1x1x4 (4 experts and 8 of 32 query
+   heads a rank; the moe job's 3 layers, batch 8, 3 AdamW steps), 16x16
+   TRAIN_4K (the dry run's policies: fsdp, 4 microbatches, 16 dispatch
+   groups; 32 layers cut to 8, 3 steps), PREFILL_32K and DECODE_32K (8
+   layers), each beside the estimate of its local trace made ahead
+   (``moe_sharded_run``), and the sm90 kernel at the prefill's local
+   shape (2, 2, 1, 32768, 128) (``moe_sharded_kernel``, a row of the
+   ``kernels`` line);
 11. vlm_train — the same for internvl2-1b at full width and depth
    (``--train vlm``), then ``vlm_ckpt``: its final parameters and AdamW
    state saved with the port's ``CheckpointManager`` to a temporary
@@ -258,8 +270,10 @@ HYBRID_PERIOD = 2
 # composed (core/loops.py; 58.0-81.6 s traced in full), but at 48 layers
 # the path took 190-205 s of the run, its serving on the card most of
 # it, and the run ended at 1,096 and 1,176 s (PERF.md section 6): 32
-# keeps the run under 1,150 s
-SSM_SERVING_LAYERS = 32
+# kept the run under 1,150 s until the MoE family's sharded runs
+# (``moe_sharded``) needed the time; 16, the depth it had before 32,
+# pays for them
+SSM_SERVING_LAYERS = 16
 # serving paths: arch -> (B, H, Hkv, S, d) of its prefill attention, and
 # the kernels held against the plain version at that shape
 SERVING_SHAPES = {"qwen3-32b": ((8, 64, 8, PROMPT_LEN, 128), ("sm90", "simt")),
@@ -412,35 +426,59 @@ PLAN_OFFLOAD_ACTIVATIONS = (0.5,)
 # topology axis in ``plan_offers``) over every topology of these device
 # counts
 DENSE_MESH_DEVICES = (2, 4)
-# ``dense_sharded``: rank 0 of qwen3-32b's sharded programs on the card,
-# under a ``fake`` process group of the mesh's size. Each run: (label,
+# ``dense_sharded`` and ``moe_sharded``: rank 0 of qwen3-32b's and
+# phi3.5-moe's sharded programs on the card, each under a ``fake``
+# process group of the mesh's size, at the end of the training job the
+# first column names (its ``TRAIN_JOBS`` config). Each run: (job, label,
 # layers, shape (seq, global batch, kind), mesh dims, axis names, group
-# of the process that estimates it ahead, steps on the card). "a": the
-# topologies ``dense_mesh`` ran (pure tensor parallelism, the dense
-# job's 4 layers and batch 8, AdamW); "b": TRAIN_4K on the production
-# 16x16 mesh with the dry run's policies (fsdp, AdamW, 4 microbatches),
-# 64 layers cut to 16 for the script's run time (a step takes about a
-# second a layer on the card); "c": the
-# serving cut's 8 layers at PREFILL_32K (the sm90 kernel on each rank's
-# heads) and DECODE_32K
+# of the process that estimates it ahead, steps on the card). Groups "a"
+# and "d": a topology's own policies (pure tensor and expert
+# parallelism: "a" the topologies ``dense_mesh`` ran, the dense job's 4
+# layers and batch 8; "d" 1x1x4, the moe job's 3 layers, 4 experts and 8
+# of 32 query heads a rank), AdamW. "b" and "e": TRAIN_4K on the
+# production 16x16 mesh with the dry run's policies (fsdp, AdamW, 4
+# microbatches, dispatch groups 16), cut for the script's run time: a
+# step takes about a second a layer on the card, and its estimate traces
+# every layer up to 9. The dense run had 16 layers, composed, until the
+# MoE runs needed the time: with 8 layers each and the estimates in four
+# processes the script took 1,351 s. Dense runs 4; the MoE run 8, where
+# its estimate holds closer to the card than at 4 (PERF.md section 6).
+# "c" and
+# "f": the serving cut's 8 layers at PREFILL_32K (the sm90 kernel on
+# each rank's heads) and DECODE_32K
 SHARDED_RUNS = (
-    ("1x1x2", 4, (4096, 8, "train"), (1, 1, 2), ("pod", "data", "model"),
-     "a", 3),
-    ("1x1x4", 4, (4096, 8, "train"), (1, 1, 4), ("pod", "data", "model"),
-     "a", 3),
-    ("16x16 train_4k", 16, (4096, 256, "train"), (16, 16),
+    ("dense", "1x1x2", 4, (4096, 8, "train"), (1, 1, 2),
+     ("pod", "data", "model"), "a", 3),
+    ("dense", "1x1x4", 4, (4096, 8, "train"), (1, 1, 4),
+     ("pod", "data", "model"), "a", 3),
+    ("dense", "16x16 train_4k", 4, (4096, 256, "train"), (16, 16),
      ("data", "model"), "b", 3),
-    ("16x16 prefill_32k", 8, (32768, 32, "prefill"), (16, 16),
+    ("dense", "16x16 prefill_32k", 8, (32768, 32, "prefill"), (16, 16),
      ("data", "model"), "c", 1),
-    ("16x16 decode_32k", 8, (32768, 128, "decode"), (16, 16),
+    ("dense", "16x16 decode_32k", 8, (32768, 128, "decode"), (16, 16),
      ("data", "model"), "c", 1),
+    ("moe", "moe 1x1x4", 3, (4096, 8, "train"), (1, 1, 4),
+     ("pod", "data", "model"), "d", 3),
+    ("moe", "moe 16x16 train_4k", 8, (4096, 256, "train"), (16, 16),
+     ("data", "model"), "e", 3),
+    ("moe", "moe 16x16 prefill_32k", 8, (32768, 32, "prefill"), (16, 16),
+     ("data", "model"), "f", 1),
+    ("moe", "moe 16x16 decode_32k", 8, (32768, 128, "decode"), (16, 16),
+     ("data", "model"), "f", 1),
 )
-# the processes that estimate them ahead, on the CPU, from the start
-SHARDED_AHEAD = ("a,c", "b")
+# the groups whose policies are their topology's own
+TOPOLOGY_GROUPS = ("a", "d")
+# the processes that estimate them ahead, on the CPU, from the start, in
+# this order: two, as many as the serving half's run time allows beside
+# the training jobs' traces (on an 8-core card machine)
+SHARDED_AHEAD = ("a,c,d,f", "b,e")
 SHARDED_AHEAD_TIMEOUT_S = 600
-# the sharded prefill's kernel at rank 0's local shape (B, H, Hkv, S, d):
-# 2 of 32 sequences, 4 of 64 query heads, the 1 kv head they group over
-SHARDED_KERNEL_SHAPE = (2, 4, 1, 32768, 128)
+# each job's sharded prefill kernel at rank 0's local shape (B, H, Hkv,
+# S, d): 2 of 32 sequences; qwen3-32b 4 of 64 query heads and the 1 kv
+# head they group over; phi3.5-moe 2 of 32 query heads and their 1 of 8
+# kv heads
+SHARDED_KERNEL_SHAPES = {"dense": (2, 4, 1, 32768, 128),
+                         "moe": (2, 2, 1, 32768, 128)}
 # the serving search (``serve_plan``, a process of its own): a burst of
 # SERVE_PLAN_REQUESTS requests of PROMPT_LEN + DECODE_TOKENS positions,
 # all queued at tick 0 (a batch-inference job's prompts), at page 16,
@@ -1375,8 +1413,8 @@ def phase_experts(cfg, params, batch: int, prefix: str) -> None:
     dispatch = moe._dispatch_one_group
     taken = []
 
-    def counting(xg, topi, topv, n_experts, capacity):
-        out = dispatch(xg, topi, topv, n_experts, capacity)
+    def counting(xg, topi, topv, n_experts, capacity, *experts):
+        out = dispatch(xg, topi, topv, n_experts, capacity, *experts)
         taken.append((out[1] < xg.shape[0]).sum(dim=1))
         return out
     prompt = srv.device_prompts(cfg, batch, PROMPT_LEN, seed=0)
@@ -1740,7 +1778,10 @@ def phase_train(job: str, rows_path: str) -> None:
         phase_plan_offers(cfg, policy, service, capacity, gate, truths,
                           plan_ahead_s, mesh)
         torch.cuda.empty_cache()
-        phase_dense_sharded(Path(rows_path).parent, mesh)
+        phase_sharded("dense", Path(rows_path).parent, mesh)
+    if job == "moe":
+        torch.cuda.empty_cache()
+        phase_sharded("moe", Path(rows_path).parent)
     if job == FLEET_JOB:
         # the workers import while the daemon phase runs on the CPU; each
         # waits on stdin, and exits when this process does
@@ -2165,35 +2206,41 @@ def phase_dense_mesh_sweep(cfg, policy, service, capacity: int, gate: dict):
     return res
 
 
-def sharded_specs(groups=None) -> list[dict]:
-    """``SHARDED_RUNS`` (those of ``groups``, default all) with their
-    configs, shapes and policies: "a" a topology's own (``MeshTopology.
-    sharding_policy``, the dense job's optimizer), "b" and "c" the dry
-    run's for qwen3-32b's full config. Serving attends through the
-    kernel, as ``launch/serve.py`` serves."""
+def sharded_specs(groups=None, job: str | None = None) -> list[dict]:
+    """``SHARDED_RUNS`` (those of ``groups``, default all, and of
+    ``job``, default every job) with their configs, shapes and policies:
+    ``TOPOLOGY_GROUPS`` a topology's own (``MeshTopology.
+    sharding_policy``, the training job's optimizer), the others the dry
+    run's for the job's full config. A MoE config dispatches in as many
+    groups as the batch axes have ranks (the dry run's
+    ``_with_moe_groups``). Serving attends through the kernel, as
+    ``launch/serve.py`` serves."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.core.sweep import MeshTopology
     from repro_torch.launch import dryrun
-    full = get_config("qwen3-32b")
     out = []
-    for label, layers, (seq, batch, kind), dims, names, group, steps \
-            in SHARDED_RUNS:
-        if groups is not None and group not in groups:
+    for run_job, label, layers, (seq, batch, kind), dims, names, group, \
+            steps in SHARDED_RUNS:
+        if (groups is not None and group not in groups
+                or job is not None and run_job != job):
             continue
+        arch = TRAIN_JOBS[run_job][0]
+        full = get_config(arch)
         sizes = dict(zip(names, dims))
-        cfg = path_config("qwen3-32b", layers,
-                          impl=None if kind == "train" else "flash")
-        if group == "a":
+        cfg = dryrun._with_moe_groups(path_config(
+            arch, layers, impl=None if kind == "train" else "flash"), sizes)
+        if group in TOPOLOGY_GROUPS:
             topo = MeshTopology(sizes.get("pod", 1), sizes.get("data", 1),
                                 sizes["model"])
-            spolicy, tpolicy = topo.sharding_policy(), train_policy("dense")
+            spolicy, tpolicy = topo.sharding_policy(), train_policy(run_job)
         else:
             topo = MeshTopology(sizes.get("pod", 1), sizes["data"],
                                 sizes["model"], fsdp=True)
             spolicy = dryrun.arch_sharding_policy(full, sizes)
             tpolicy = dryrun.arch_train_policy(full.name, full)
-        out.append({"label": label, "cfg": cfg, "kind": kind, "dims": dims,
+        out.append({"job": run_job, "label": label, "cfg": cfg,
+                    "kind": kind, "dims": dims,
                     "names": names, "group": group, "steps": steps,
                     "shape": ShapeSpec(label, seq, batch, kind),
                     "topology": topo, "spolicy": spolicy,
@@ -2282,6 +2329,7 @@ def sharded_ahead(groups: str, out_path: str) -> None:
                    persistent=rep.persistent_bytes, depth=rep.depth,
                    argument_bytes=dryrun.local_bytes(job.local),
                    flops=counter.flops, bytes_accessed=counter.bytes_accessed,
+                   flops_by_op=dict(counter.flops_by_op),
                    ops=counter.ops, collectives=counter.collectives())
         row["sweep"] = sweep_row(spec, XMemEstimator.for_torch_gpu())
         out[spec["label"]] = row
@@ -2311,14 +2359,16 @@ def _wait_for(path: Path, label: str) -> dict:
             if label in got:
                 return got[label]
         if time.monotonic() > deadline:
-            raise AssertionError(f"dense_sharded: no estimate of {label} "
-                                 f"in {path}")
+            raise AssertionError(f"no sharded estimate of {label} in "
+                                 f"{path}")
         time.sleep(1.0)
 
 
-def phase_dense_sharded(rows_dir: Path, mesh=None, groups=None) -> None:
-    """Rank 0 of qwen3-32b's sharded programs (``SHARDED_RUNS``) on the
-    card: each under a ``fake`` process group of its mesh's size (its
+def phase_sharded(job: str, rows_dir: Path, mesh=None,
+                  groups=None) -> None:
+    """Rank 0 of ``job``'s sharded programs (its ``SHARDED_RUNS``: qwen3-32b
+    for "dense", phi3.5-moe for "moe") on the card, the ``<job>_sharded``
+    phase: each under a ``fake`` process group of its mesh's size (its
     collectives move no data, and NCCL's buffers are absent), with real
     local shards on the card, its training steps or one serving step,
     beside its estimate made ahead (``--sharded-ahead``). Fails on an out
@@ -2328,10 +2378,12 @@ def phase_dense_sharded(rows_dir: Path, mesh=None, groups=None) -> None:
     ``RESERVED_TOL`` under the card's reserved peak (the sharded estimate
     safety rule), a sharded prefill that launched no kernel, or a kernel
     at rank 0's local shape that differs from its plain version. The
-    sweep rows of "b" and "c" are reported. ``mesh``: the dense job's
+    other runs' sweep rows are reported. ``mesh``: the dense job's
     ``dense_mesh_sweep`` rows, each "a" row held to the ahead sweep's."""
     import torch
     _quiet_dtensor()
+    phase = f"{job}_sharded"
+    specs = sharded_specs(groups, job)
     swept = {t.label: r.peak_bytes for t, r in mesh} if mesh else {}
     runs, violations = [], []
     # the serving runs' processes import while the training runs use the
@@ -2339,9 +2391,9 @@ def phase_dense_sharded(rows_dir: Path, mesh=None, groups=None) -> None:
     serving = {spec["label"]: subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--sharded-serving",
          spec["label"], str(rows_dir)], stdin=subprocess.PIPE, text=True)
-        for spec in sharded_specs(groups) if spec["kind"] != "train"}
+        for spec in specs if spec["kind"] != "train"}
     try:
-        for spec in sharded_specs(groups):
+        for spec in specs:
             label = spec["label"]
             ahead = _wait_for(ahead_path(rows_dir, spec["group"]), label)
             if spec["kind"] == "train":
@@ -2355,7 +2407,7 @@ def phase_dense_sharded(rows_dir: Path, mesh=None, groups=None) -> None:
                 child.stdin.write("go\n")
                 child.stdin.close()
                 if child.wait(timeout=600) != 0:
-                    raise AssertionError(f"dense_sharded {label}: exit "
+                    raise AssertionError(f"{phase} {label}: exit "
                                          f"{child.returncode}")
                 card = json.loads(card_path(rows_dir, label).read_text())
             if "oom" in card:
@@ -2364,24 +2416,24 @@ def phase_dense_sharded(rows_dir: Path, mesh=None, groups=None) -> None:
             run = sharded_record(spec, ahead, card, swept.get(label),
                                  violations)
             runs.append(run)
-            emit("dense_sharded_run", **run)
-            with open(Path(rows_dir) / "dense_sharded_runs.jsonl", "a") as f:
+            emit(f"{phase}_run", **run)
+            with open(Path(rows_dir) / f"{phase}_runs.jsonl", "a") as f:
                 f.write(json.dumps(run) + "\n")
     finally:
         for child in serving.values():      # not reached: a run failed
             child.kill()
             child.wait()
-    emit("dense_sharded", config="qwen3-32b", runs=[r["run"] for r in runs],
+    emit(phase, config=TRAIN_JOBS[job][0], runs=[r["run"] for r in runs],
          note="under the fake process group the collectives move no data "
               "and NCCL's buffers are absent; their bytes are what rank 0 "
               "would move", violations=violations, memory=device_memory())
     if violations:
-        raise AssertionError(f"dense_sharded: {violations}")
+        raise AssertionError(f"{phase}: {violations}")
 
 
 def sharded_record(spec, ahead: dict, card: dict, swept, violations: list
                    ) -> dict:
-    """One ``dense_sharded`` run's line: the card's run beside its
+    """One ``<job>_sharded`` run's line: the card's run beside its
     estimate made ahead, the mesh sweep's row (and ``swept``,
     ``dense_mesh_sweep``'s row for the topology, which must equal it),
     the local counts; each broken rule appended to ``violations``."""
@@ -2406,7 +2458,9 @@ def sharded_record(spec, ahead: dict, card: dict, swept, violations: list
                                     "counted")},
            "rel_reserved": rel_r, "rel_allocated": rel_a,
            "sweep": sweep, "sweep_rel_reserved": sweep_rel,
-           "local_flops": ahead["flops"], "local_ops": ahead["ops"],
+           "local_flops": ahead["flops"],
+           "local_flops_by_op": ahead["flops_by_op"],
+           "local_ops": ahead["ops"],
            "analytic_flops": dryrun.analytic_flops(
                spec["cfg"], spec["shape"]) / spec["topology"].n_devices,
            "kernel_launches": launches}
@@ -2477,30 +2531,37 @@ def sharded_serving(label: str, rows_dir: str) -> None:
         raise AssertionError(f"{label}: no turn on the card")
     card = sharded_card_run(spec)
     if spec["kind"] == "prefill" and "oom" not in card:
-        card["kernel"] = sharded_kernel_row(Path(rows_dir),
+        card["kernel"] = sharded_kernel_row(Path(rows_dir), spec["job"],
                                             card["launches"]["sm90"])
     card_path(rows_dir, label).write_text(json.dumps(card))
 
 
-def sharded_kernel_row(rows_dir: Path, launches: int) -> dict:
-    """The sm90 kernel at the sharded prefill's local shape
-    (``SHARDED_KERNEL_SHAPE``) against its plain version, its time, bound
+def sharded_kernel_row(rows_dir: Path, job: str, launches: int) -> dict:
+    """The sm90 kernel at ``job``'s sharded prefill's local shape
+    (``SHARDED_KERNEL_SHAPES``) against its plain version, its time, bound
     and SDPA's; ``launches`` from the sharded prefill. Written to
-    ``rows_dir`` for the parent's ``kernels`` line."""
+    ``rows_dir`` (``kernel_row_path``) for the parent's ``kernels``
+    line."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(2)
 
     def rand(*shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
+    shape = SHARDED_KERNEL_SHAPES[job]
     got, cases, lim = serving_shape_rows(
-        "dense_sharded prefill_32k", SHARDED_KERNEL_SHAPE, ("sm90",), rand,
+        f"{job}_sharded prefill_32k", shape, ("sm90",), rand,
         torch.nn.functional.scaled_dot_product_attention)
     row = dict(got[0], launches=launches)
-    (rows_dir / "sharded_kernel.json").write_text(json.dumps(row))
-    emit("dense_sharded_kernel", cases=cases, row=row,
-         shape=shape_summary(SHARDED_KERNEL_SHAPE, got, lim))
+    kernel_row_path(rows_dir, job).write_text(json.dumps(row))
+    emit(f"{job}_sharded_kernel", cases=cases, row=row,
+         shape=shape_summary(shape, got, lim))
     return row
+
+
+def kernel_row_path(rows_dir: Path, job: str) -> Path:
+    """Where ``job``'s sharded prefill kernel row is written."""
+    return Path(rows_dir) / f"{job}_sharded_kernel.json"
 
 
 def phase_plan_offers(cfg, policy, service, capacity: int, gate: dict,
@@ -3504,18 +3565,20 @@ def main() -> int:
     if sys.argv[1:2] == ["--sharded-serving"] and len(sys.argv) == 4:
         sharded_serving(sys.argv[2], sys.argv[3])
         return 0
-    if sys.argv[1:2] == ["--dense-sharded"] and len(sys.argv) in (3, 4):
-        # the phase alone (of GROUPS, default all), its estimates made
-        # first in this process
+    if sys.argv[1:2] in (["--dense-sharded"], ["--moe-sharded"]) \
+            and len(sys.argv) in (3, 4):
+        # the job's phase alone (of GROUPS, default all), its estimates
+        # made first in this process
+        job = sys.argv[1][2:-len("-sharded")]
         out = Path(sys.argv[2])
         out.mkdir(parents=True, exist_ok=True)
-        groups = sys.argv[3].split(",") if len(sys.argv) == 4 else None
+        groups = sys.argv[3].split(",") if len(sys.argv) == 4 else \
+            sorted({spec["group"] for spec in sharded_specs(job=job)})
         for ahead in SHARDED_AHEAD:
-            mine = [g for g in ahead.split(",")
-                    if groups is None or g in groups]
+            mine = [g for g in ahead.split(",") if g in groups]
             if mine:
                 sharded_ahead(",".join(mine), str(ahead_path(out, mine[0])))
-        phase_dense_sharded(out, groups=groups)
+        phase_sharded(job, out, groups=groups)
         return 0
     # each training job gets a process of its own, as it would: a fresh
     # allocator whose first iteration makes cuBLAS's workspaces. They
@@ -3554,7 +3617,7 @@ def main() -> int:
         os.sched_setaffinity(ahead.pid, mine)
 
     # rank 0's sharded programs are estimated ahead on the CPU, from the
-    # start, for the dense job's ``dense_sharded`` phase
+    # start, for the dense and moe jobs' ``<job>_sharded`` phases
     sharded = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--sharded-ahead",
          groups, str(ahead_path(rows_dir, groups[0]))])
@@ -3637,10 +3700,10 @@ def main() -> int:
             if child.wait(timeout=60) != 0:
                 raise AssertionError(f"sharded_ahead failed: exit "
                                      f"{child.returncode}")
-        # the sm90 kernel at the sharded prefill's local shape, its
-        # launches from the dense job's sharded prefill
-        rows.append(json.loads((rows_dir / "sharded_kernel.json")
-                               .read_text()))
+        # the sm90 kernel at each sharded prefill's local shape, its
+        # launches from that job's sharded prefill
+        rows += [json.loads(kernel_row_path(rows_dir, job).read_text())
+                 for job in SHARDED_KERNEL_SHAPES]
         phase_comparison({job: json.loads((rows_dir / f"{job}.json")
                                           .read_text())
                           for job in TRAIN_JOBS if job not in GATE_ONLY},

@@ -16,7 +16,8 @@ stream as the ops run:
   return a storage the tracer already knows, and allocate nothing;
 * the buffers some CUDA kernels allocate and free inside one op, which
   the fake kernels do not (``_KERNEL_TEMPS``), as short-lived blocks
-  after the op's outputs.
+  after the op's outputs, or before them and freed after them where the
+  op stages its work in them (``_KERNEL_STAGING``).
 
 The inputs (params, cache, batch, grads, optimizer state) are
 registered before the step runs, pinned and kinded; the step's outputs
@@ -45,8 +46,12 @@ shards, collectives included. A collective's output (the
 ``wait_tensor`` returns the same storage, so it allocates nothing. The
 ops DTensor's sharding propagation runs at global shapes to learn an
 output's shape (``ShardingPropagator``'s tensor-meta pass) are run and
-not recorded (``_PROPAGATING``). A trace with no DTensor in it is
-recorded exactly as before.
+not recorded (``_PROPAGATING``). A shard moved from one tensor dim to
+another over a mesh dim (the expert stacks' gradients into their
+optimizer state's layout) is traced as the card runs it, one
+``_dtensor::shard_dim_alltoall`` with its staging buffers, not as the
+all-gather and chunk DTensor falls back to on a CPU mesh. A
+trace with no DTensor in it is recorded exactly as before.
 
 Nothing is allocated and no device is touched: a full-width step traces
 in seconds on a machine with no GPU. The fake tensors live on the CPU
@@ -84,6 +89,18 @@ def _bool_sum_temps(x, *args, **kwargs):
     return [x.numel() * 8] if x.dtype == torch.bool else []
 
 
+def _alltoall_staging(x, gather_dim, shard_dim, group_name):
+    """The shard-dim all-to-all (``_dtensor::shard_dim_alltoall``) stages
+    its input in two buffers of the input's size (the chunks laid out
+    for the exchange, and the exchange's receive buffer) before its
+    output, and frees them after it, the second first: read off the
+    card's allocator requests (torch 2.11, one 1,258,291,200 B f32 move
+    over a group of 4). Returns (sizes in allocation order, the order
+    they are freed in)."""
+    size = x.numel() * x.element_size()
+    return [size, size], [1, 0]
+
+
 def _sort_temps(x, *args, **kwargs):
     """CUDA's sort (stable or not: one kernel) of the 1-D int64 keys the
     MoE dispatch sorts: an int64 identity permutation (``8 n`` B), and,
@@ -114,6 +131,16 @@ _KERNEL_TEMPS = {
     torch.ops.aten.sort.stable: _sort_temps,
     torch.ops.aten.sort.default: _sort_temps,
 }
+# Device buffers an op's CUDA kernel stages its work in: made before its
+# output and freed after it. Each rule gives (the buffers' bytes in the
+# order they are made, the order they are freed in) from the op's
+# arguments.
+_KERNEL_STAGING = {}
+try:
+    _KERNEL_STAGING[torch.ops._dtensor.shard_dim_alltoall.default] = \
+        _alltoall_staging
+except (AttributeError, RuntimeError):     # no distributed build
+    pass
 
 
 try:
@@ -134,7 +161,9 @@ def _propagating() -> bool:
 def _watch_dtensor() -> frozenset:
     """The DTensor type (to hand its ops back to DTensor) and, once per
     process, a wrapper around ``ShardingPropagator``'s uncached
-    tensor-meta pass that marks the thread while it runs."""
+    tensor-meta pass that marks the thread while it runs, and one around
+    DTensor's shard-dim all-to-all that runs the card's op on fake
+    tensors (``_card_alltoall``)."""
     global _DTENSOR_TYPES
     if _DTENSOR_TYPES is None:
         try:
@@ -153,6 +182,7 @@ def _watch_dtensor() -> frozenset:
             finally:
                 _PROPAGATING.n -= 1
         ShardingPropagator._propagate_tensor_meta_non_cached = marked
+        _card_alltoall()
         _DTENSOR_TYPES = frozenset({DTensor})
     return _DTENSOR_TYPES
 
@@ -169,6 +199,28 @@ class _Block:
     scope: str = ""
     shape: tuple | None = None
     refs: int = 1                  # live storages that hold the block
+
+
+def _card_alltoall() -> None:
+    """DTensor moves a shard from one tensor dim to another over a mesh
+    dim with the op ``_dtensor::shard_dim_alltoall`` on a card's mesh and
+    with an all-gather and a chunk on a CPU mesh (gloo has no
+    all-to-all), which holds the whole gathered tensor. A traced rank
+    runs on a CPU mesh and fake tensors: there it runs the card's op
+    (whose fake kernel gives the output; ``_KERNEL_STAGING`` its
+    staging buffers). Real tensors keep DTensor's own path."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import placement_types
+    on_cpu = placement_types.shard_dim_alltoall
+
+    def shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        if not isinstance(input, FakeTensor):
+            return on_cpu(input, gather_dim, shard_dim, mesh, mesh_dim)
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim,
+            funcol._resolve_group_name((mesh, mesh_dim)))
+    placement_types.shard_dim_alltoall = shard_dim_alltoall
 
 
 class TorchMemoryTracer(TorchDispatchMode):
@@ -272,6 +324,10 @@ class TorchMemoryTracer(TorchDispatchMode):
             return out
         scope = ("backward" if torch._C._current_graph_task_id() != -1
                  else "")
+        staging = _KERNEL_STAGING.get(func)
+        if staging is not None:
+            sizes, free_order = staging(*args)
+            staged = [self._temp(size, scope) for size in sizes]
         for t in pytree.tree_leaves(out):
             if not isinstance(t, torch.Tensor):
                 continue
@@ -281,6 +337,10 @@ class TorchMemoryTracer(TorchDispatchMode):
                 continue   # a view, an in-place result, or nothing
             self._new_block(t, self._op, BlockKind.ACTIVATION, scope)
             self._finalizers[key] = weakref.finalize(st, self._on_free, key)
+        if staging is not None:
+            for i in free_order:
+                staged[i].free_t = self.t
+                self._emit(False, staged[i], self._op)
         rule = _KERNEL_TEMPS.get(func)
         if rule is not None:
             temps = [_Block(len(self.blocks) + i, size, kind=BlockKind.TEMP,
@@ -293,6 +353,14 @@ class TorchMemoryTracer(TorchDispatchMode):
                 b.free_t = self.t
                 self._emit(False, b, self._op)
         return out
+
+    def _temp(self, size: int, scope: str) -> _Block:
+        """A kernel's staging buffer of ``size`` bytes, allocated now."""
+        b = _Block(len(self.blocks), size, kind=BlockKind.TEMP,
+                   alloc_t=self.t, op=self._op, scope=scope)
+        self.blocks[b.bid] = b
+        self._emit(True, b, self._op)
+        return b
 
     def _alias(self, out, src) -> None:
         """``out`` holds ``src``'s block: a collective's wait returns its

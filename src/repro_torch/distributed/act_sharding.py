@@ -18,7 +18,8 @@ DTensor's own sharding rules would fail or gather: the products as
 Megatron runs them (:func:`linear`), fsdp's gather of a layer's weights
 (:func:`gathered`), the vocab-sharded embedding (:func:`embedding`), a
 projection split into heads (:func:`split_last`), attention on each
-rank's own heads (:func:`local_heads`) and a plain constant beside a
+rank's own heads (:func:`local_heads`), the MoE dispatch to each rank's
+own experts (:func:`local_experts`) and a plain constant beside a
 DTensor operand (:func:`replicated`). Each leaves plain tensors to the
 plain code path, op for op.
 """
@@ -313,3 +314,61 @@ def linear(x, w):
     x = x.redistribute(mesh, xp)
     y = x.to_local(grad_placements=xg) @ w.to_local(grad_placements=wg)
     return from_local(y, mesh, op, tuple(x.shape[:-1]) + (w.shape[-1],))
+
+
+def local_experts(fn, x, params, groups: int):
+    """The MoE FFN on DTensors, expert-parallel without an all-to-all:
+    ``fn(x, params, groups, lo)`` (``models/moe.py:moe_experts``, the
+    f32 combine) run by each rank on local tensors, then one all-reduce
+    over the expert axes. Plain tensors: ``fn(x, params, groups, 0)``
+    cast to ``x``'s dtype.
+
+    ``x`` [B, S, D] is laid out batch-sharded over the bound scope's
+    batch axes, where they split the ``groups`` dispatch groups whole
+    (else replicated, each rank routing every group), and replicated
+    over the rest, so every expert-axis rank holds the same tokens. The
+    expert stacks ``[E, ...]`` keep their expert-dim shards
+    (``Shard(0)``, the rule engine's over ``model``) and are replicated
+    elsewhere (fsdp's shards gathered); the router is replicated. Each
+    rank routes its groups over all E experts, gathers only its own
+    experts' capacity rows ``[E/M, C, D]`` and combines their weighted
+    outputs in f32: a partial sum over the expert axes, made whole (in
+    f32) by :func:`constrain` to ``("batch", None, None)`` and then
+    cast to ``x``'s dtype. The gradients are declared on the same
+    terms: ``x``'s and the router's partial over the expert axes (each
+    rank adds its experts' share) and the router's and the stacks'
+    partial over the batch axes that shard ``x`` (each rank adds its
+    tokens' share)."""
+    if not is_dtensor(x):
+        return fn(x, params, groups, 0).to(x.dtype)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    bdims = _batch_dims(mesh)
+    nb = 1
+    for i in bdims:
+        nb *= mesh.size(i)
+    split = groups % nb == 0 and x.shape[0] % nb == 0
+    xp = [Shard(0) if split and i in bdims else Replicate()
+          for i in range(mesh.ndim)]
+    ep = [i for i, p in enumerate(params["we_gate"].placements)
+          if p == Shard(0)]
+    wp = [Shard(0) if i in ep else Replicate() for i in range(mesh.ndim)]
+    x = x.redistribute(mesh, xp)
+    batch_partial = [Partial() if p == Shard(0) else Replicate() for p in xp]
+    local = {"router": params["router"].redistribute(
+        mesh, [Replicate()] * mesh.ndim).to_local(grad_placements=[
+            Partial() if i in ep else p for i, p in enumerate(batch_partial)])}
+    for name in ("we_gate", "we_up", "we_down"):
+        w = params[name].redistribute(mesh, wp)
+        local[name] = w.to_local(grad_placements=[
+            Partial() if xp[i] == Shard(0) else p for i, p in enumerate(wp)])
+    lo = 0
+    for i in ep:
+        lo = lo * mesh.size(i) + coordinate(mesh, i)
+    lo *= local["we_gate"].shape[0]
+    xl = x.to_local(grad_placements=[Partial() if i in ep else p
+                                     for i, p in enumerate(xp)])
+    y = fn(xl, local, groups // nb if split else groups, lo)
+    out = from_local(y, mesh, [Partial() if i in ep else p
+                               for i, p in enumerate(xp)], tuple(x.shape))
+    return constrain(out, ("batch", None, None)).to(x.dtype)

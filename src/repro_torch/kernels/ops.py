@@ -6,9 +6,11 @@ ragged sequence edge itself, so unlike the JAX package's wrapper this
 one does not pad the sequence. A head dim that no kernel takes (kimi-k2's
 112) is zero-padded to the next one that a kernel does
 (``padded_head_dim``): zero columns add nothing to q . k, the scale
-stays ``1/sqrt(hd)``, and the padded output columns are sliced off. The
-padding happens here, outside the operator, so the memory tracer sees
-the padded copies as ordinary op outputs.
+stays ``1/sqrt(hd)``, and the padded output columns are sliced off into
+a contiguous tensor (the caller's head merge then is a view, on a
+plain tensor and on a rank's local shard alike; DTensor will not view
+a strided slice). The padding happens here, outside the operator, so
+the memory tracer sees the padded copies as ordinary op outputs.
 
 DTensor inputs (a sharded run) take the operator's sharding rule,
 ``act_sharding.local_heads``: each rank launches the kernel on its own
@@ -42,4 +44,4 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                v.transpose(1, 2), causal=causal,
                                window=window, scale=1.0 / math.sqrt(d))
     out = out.transpose(1, 2)
-    return out if dp == d else out[..., :d]
+    return out if dp == d else out[..., :d].contiguous()

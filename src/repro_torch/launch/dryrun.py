@@ -37,6 +37,8 @@ adds: NCCL's buffers and the data the collectives move.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-32b \\
       --shape train_4k [--multi-pod] --device cpu [--out artifacts/dryrun_torch]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \\
+      phi3.5-moe-42b-a6.6b --both-meshes --device cpu   # every shape
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu
   PYTHONPATH=src python -m repro_torch.launch.dryrun --xmem-gate qwen3-32b
 """
@@ -464,7 +466,9 @@ def main(argv=None) -> int:
             return 1
     meshes = (False, True) if (args.both_meshes or args.all) \
         else (args.multi_pod,)
-    cells = list(iter_cells()) if args.all else [(args.arch, args.shape)]
+    cells = [(arch, shape) for arch, shape in iter_cells(
+        None if args.all else [args.arch])
+        if args.shape in (None, shape)]
     results = []
     for arch, shape_name in cells:
         for mp in meshes:

@@ -36,10 +36,30 @@ def fake_world(world_size: int):
         raise RuntimeError("a process group is already initialized")
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=world_size)
+    _forget_shardings()
     try:
         yield
     finally:
         dist.destroy_process_group()
+        _forget_shardings()
+
+
+def _forget_shardings() -> None:
+    """Empty DTensor's sharding-propagation caches (Python's, this
+    thread's, and C++'s where torch has one). A cached op's output spec
+    holds the mesh it was computed on, and a mesh of a later group
+    compares equal to one of the same shape and names of an earlier,
+    destroyed group: without this, an op of the new group's step could
+    run on the old group's mesh, whose process groups no longer
+    resolve."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding
+    for clear in (getattr(prop, "cache_clear", None),
+                  getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                          None)):
+        if clear is not None:
+            clear()
 
 
 def production_shape(multi_pod: bool) -> tuple:

@@ -10,16 +10,24 @@ DTensor argument back to DTensor, as the memory tracer does, and skips
 DTensor's sharding-propagation ops at global shapes):
 
 * ``flops``: ``torch.utils.flop_counter``'s formula for each local op
-  that has one (matmuls, ``bmm`` of the attention's einsums), and the
+  that has one (matmuls; ``bmm``, the attention's einsums and a MoE
+  rank's expert products over its own experts' capacity rows), and the
   attention kernel's ``4 d`` per attended (query, key) pair and head;
+  ``flops_by_op`` splits them by op (``aten::mm``, ``aten::bmm``,
+  ``repro_torch::flash_attention``);
 * ``bytes_accessed``: each op's tensor inputs read once and outputs
   written once (views and waits move nothing);
-* collectives: each ``_c10d_functional`` collective's bytes, the larger
+* collectives: each ``_c10d_functional`` (or ``_dtensor``) collective's
+  bytes, the larger
   of its operands and its result (an all-gather's gathered tensor, a
   reduce-scatter's whole input, an all-reduce's tensor), by the
   reference's kinds (``all-gather``, ``reduce-scatter``, ``all-reduce``,
   ``all-to-all``, ``collective-permute``), with counts and
-  ``total_bytes``;
+  ``total_bytes`` (a MoE layer's combine is one f32 ``all-reduce``
+  over the expert axis: expert parallelism here moves no tokens; an
+  ``all-to-all`` is DTensor's ``_dtensor::shard_dim_alltoall``, a shard
+  moved to another tensor dim, as the card runs it: the expert stacks'
+  gradients into their optimizer state's layout);
 * ``ops``: the local ops counted (the record's ``hlo_ops``).
 
 Under a ``fake`` process group the collectives move no data: their
@@ -43,6 +51,7 @@ _KINDS = {"all_gather_into_tensor": "all-gather",
           "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
           "all_reduce_coalesced": "all-reduce",
           "all_to_all_single": "all-to-all",
+          "shard_dim_alltoall": "all-to-all",
           "broadcast": "collective-permute"}
 
 
@@ -77,6 +86,7 @@ class ProgramCounter(TorchDispatchMode):
         self._propagating = _propagating
         self._dtensor = _watch_dtensor()
         self.flops = 0
+        self.flops_by_op = Counter()
         self.bytes_accessed = 0
         self.ops = 0
         self.coll_bytes = Counter({c: 0 for c in COLLECTIVES})
@@ -94,7 +104,7 @@ class ProgramCounter(TorchDispatchMode):
             return out
         self.ops += 1
         ns, _, op = name.partition("::")
-        if ns == "_c10d_functional":
+        if ns in ("_c10d_functional", "_dtensor"):
             kind = _KINDS.get(op)
             if kind is not None:
                 self.coll_bytes[kind] += max(
@@ -102,12 +112,16 @@ class ProgramCounter(TorchDispatchMode):
                         if isinstance(t, torch.Tensor)) for x in (args, out))
                 self.coll_count[kind] += 1
             return out
+        flops = 0
         if name == "repro_torch::flash_attention":
-            self.flops += _flash_flops(*args, **kwargs)
+            flops = _flash_flops(*args, **kwargs)
         else:
             f = self._registry.get(func._overloadpacket)
             if f is not None:
-                self.flops += int(f(*args, **kwargs, out_val=out))
+                flops = int(f(*args, **kwargs, out_val=out))
+        if flops:
+            self.flops += flops
+            self.flops_by_op[name] += flops
         if not getattr(func, "is_view", False):
             self.bytes_accessed += sum(
                 _nbytes(t) for t in pytree.tree_leaves((args, kwargs, out))
@@ -123,14 +137,17 @@ class ProgramCounter(TorchDispatchMode):
 
     def cost(self) -> dict:
         """The record's ``cost`` counts (the reference's ``flops`` and
-        ``bytes accessed``)."""
+        ``bytes accessed``), and the FLOPs by op."""
         return {"flops": float(self.flops),
-                "bytes_accessed": float(self.bytes_accessed)}
+                "bytes_accessed": float(self.bytes_accessed),
+                "flops_by_op": {k: float(v)
+                                for k, v in sorted(self.flops_by_op.items())}}
 
     def __add__(self, other: "ProgramCounter") -> "ProgramCounter":
         """The counts of two programs run one after the other."""
         out = ProgramCounter.__new__(ProgramCounter)
         out.flops = self.flops + other.flops
+        out.flops_by_op = self.flops_by_op + other.flops_by_op
         out.bytes_accessed = self.bytes_accessed + other.bytes_accessed
         out.ops = self.ops + other.ops
         out.coll_bytes = Counter({c: self.coll_bytes[c] + other.coll_bytes[c]
@@ -147,6 +164,10 @@ class ProgramCounter(TorchDispatchMode):
         n = units - base_units
         out = ProgramCounter.__new__(ProgramCounter)
         out.flops = self.flops + n * (other.flops - self.flops)
+        out.flops_by_op = Counter({
+            k: self.flops_by_op[k] + n * (other.flops_by_op[k]
+                                          - self.flops_by_op[k])
+            for k in self.flops_by_op | other.flops_by_op})
         out.bytes_accessed = self.bytes_accessed + n * (
             other.bytes_accessed - self.bytes_accessed)
         out.ops = self.ops + n * (other.ops - self.ops)

@@ -66,10 +66,15 @@ def expert_capacity(tokens_per_group: int, cfg: MoEConfig) -> int:
     return max(8, -(-c // 8) * 8)  # pad to multiple of 8 for tiling
 
 
-def _dispatch_one_group(xg, topi, topv, n_experts: int, capacity: int):
-    """xg: [Tg, D]; topi/topv: [Tg, k] -> (xe [E, C, D], gmap [E, C],
-    wmap [E, C] f32). ``gmap`` holds token ids, ``Tg`` for an empty
-    slot (the zero row appended to ``xg``)."""
+def _dispatch_one_group(xg, topi, topv, n_experts: int, capacity: int,
+                        lo: int, n: int):
+    """xg: [Tg, D]; topi/topv: [Tg, k] -> (xe [n, C, D], gmap [n, C],
+    wmap [n, C] f32) for experts ``lo .. lo + n`` of the
+    ``n_experts``. ``gmap`` holds token ids, ``Tg`` for an empty slot
+    (the zero row appended to ``xg``). The maps are laid out for all
+    experts and the dummy row, so an over-full expert drops the same
+    tokens whichever experts are taken; only the taken experts' rows
+    are gathered."""
     Tg, k = topi.shape
     flat_e = topi.reshape(-1)                      # [Tg*k]
     flat_w = topv.reshape(-1)
@@ -87,17 +92,18 @@ def _dispatch_one_group(xg, topi, topv, n_experts: int, capacity: int):
     wmap = torch.zeros((n_experts + 1, capacity), dtype=torch.float32,
                        device=xg.device)
     wmap[ge, gp] = torch.index_select(flat_w, 0, order)
-    gmap, wmap = gmap[:n_experts], wmap[:n_experts]
+    gmap, wmap = gmap[lo:lo + n], wmap[lo:lo + n]
     x_pad = torch.cat([xg, xg.new_zeros((1, xg.shape[1]))], 0)
     xe = torch.index_select(x_pad, 0, gmap.reshape(-1))
-    return xe.reshape(n_experts, capacity, -1), gmap, wmap
+    return xe.reshape(n, capacity, -1), gmap, wmap
 
 
-def _route(x, router, cfg: MoEConfig):
-    """x: [B, S, D] -> (xf [G, Tg, D], topi, topv [G, Tg, k]): f32 router
-    logits, softmax, top-k and the renormalized gate weights."""
+def _route(x, router, cfg: MoEConfig, groups: int | None = None):
+    """x: [B, S, D] -> (xf [G, Tg, D], topi, topv [G, Tg, k]) for G
+    ``groups`` (default ``cfg.num_groups``): f32 router logits,
+    softmax, top-k and the renormalized gate weights."""
     B, S, D = x.shape
-    G = cfg.num_groups
+    G = cfg.num_groups if groups is None else groups
     if B * S % G:
         raise ValueError(f"tokens {B * S} not divisible by groups {G}")
     xf = x.reshape(G, B * S // G, D)
@@ -108,25 +114,32 @@ def _route(x, router, cfg: MoEConfig):
     return xf, topi, topv
 
 
-def moe_ffn(x, params, cfg: MoEConfig):
-    """x: [B, S, D] -> [B, S, D]. Groups run one after another (the
-    launcher's G is 1 on one card). One group takes reshaped views,
-    whose backward is a view too; ``G > 1`` groups are unbound, whose
-    backward stacks the groups' gradients."""
+def moe_experts(x, params, cfg: MoEConfig, groups: int, lo: int):
+    """The plain MoE body on (local) tensors: x [B, S, D] in ``groups``
+    dispatch groups, routed over all ``cfg.num_experts`` experts, of
+    which ``params``' expert stacks hold ``n`` from expert ``lo`` on
+    (all of them on one device). Returns the f32 combine [B, S, D]: the
+    whole output, or on a rank of an expert-parallel mesh its experts'
+    share of it. Groups run one after another (the launcher's G is 1 on
+    one card). One group takes reshaped views, whose backward is a view
+    too; ``G > 1`` groups are unbound, whose backward stacks the
+    groups' gradients."""
     B, S, D = x.shape
-    xf, topi, topv = _route(x, params["router"], cfg)
+    xf, topi, topv = _route(x, params["router"], cfg, groups)
     G, Tg = xf.shape[:2]
     C = expert_capacity(Tg, cfg)
-    groups = (zip(xf.unbind(0), topi.unbind(0), topv.unbind(0)) if G > 1
-              else [(xf.reshape(Tg, D), topi.reshape(Tg, -1),
-                     topv.reshape(Tg, -1))])
+    n = params["we_gate"].shape[0]
+    parts = (zip(xf.unbind(0), topi.unbind(0), topv.unbind(0)) if G > 1
+             else [(xf.reshape(Tg, D), topi.reshape(Tg, -1),
+                    topv.reshape(Tg, -1))])
     ys = []
-    for xg, ti, tv in groups:
-        xe, gmap, wmap = _dispatch_one_group(xg, ti, tv, cfg.num_experts, C)
-        # expert SwiGLU: FLOPs = E*C*D*F*3*2 per group, top_k-scaled
+    for xg, ti, tv in parts:
+        xe, gmap, wmap = _dispatch_one_group(xg, ti, tv, cfg.num_experts, C,
+                                             lo, n)
+        # expert SwiGLU: FLOPs = n*C*D*F*3*2 per group, top_k-scaled
         h = F.silu(torch.bmm(xe, params["we_gate"])) \
             * torch.bmm(xe, params["we_up"])
-        out = torch.bmm(h, params["we_down"])       # [E, C, D]
+        out = torch.bmm(h, params["we_down"])       # [n, C, D]
         del xe, h
         # combine: scatter-add the weighted expert outputs, in f32
         y = torch.zeros((Tg + 1, D), dtype=torch.float32, device=x.device)
@@ -134,7 +147,19 @@ def moe_ffn(x, params, cfg: MoEConfig):
                      (out * wmap[..., None]).reshape(-1, D).float())
         ys.append(y[:Tg])
     y = ys[0] if G == 1 else torch.cat(ys, 0)
-    return y.reshape(B, S, D).to(x.dtype)
+    return y.reshape(B, S, D)
+
+
+def moe_ffn(x, params, cfg: MoEConfig):
+    """x: [B, S, D] -> [B, S, D]: :func:`moe_experts` cast to ``x``'s
+    dtype. DTensor inputs (a sharded run) go through
+    ``act_sharding.local_experts``: each rank dispatches its own groups'
+    tokens to its own experts, and one f32 all-reduce over the expert
+    axis completes the combine."""
+    from ..distributed.act_sharding import local_experts
+    return local_experts(
+        lambda x, p, groups, lo: moe_experts(x, p, cfg, groups, lo),
+        x, params, cfg.num_groups)
 
 
 def aux_load_balance_loss(x, params, cfg: MoEConfig) -> torch.Tensor:

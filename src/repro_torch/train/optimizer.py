@@ -45,6 +45,51 @@ def _zeros32(p: torch.Tensor) -> torch.Tensor:
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
+def _placements_without(p: torch.Tensor, dim: int) -> list:
+    """The DTensor placements of ``p`` with tensor dim ``dim`` dropped:
+    a shard of ``dim`` made replicated, later dims' shards shifted."""
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= p.ndim
+    return [Replicate() if isinstance(q, Shard) and q.dim == dim
+            else Shard(q.dim - (q.dim > dim)) if isinstance(q, Shard) else q
+            for q in p.placements]
+
+
+def _zeros32_without(p: torch.Tensor, dim: int) -> torch.Tensor:
+    """f32 zeros of ``p``'s shape with ``dim`` dropped (a factored second
+    moment's rows or columns); a DTensor's laid out as ``p`` is
+    (:func:`_placements_without`: the local rows or columns of each
+    shard are the ones it updates)."""
+    dim %= p.ndim
+    shape = tuple(p.shape[:dim]) + tuple(p.shape[dim + 1:])
+    if not is_dtensor(p):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from ..distributed.act_sharding import from_local
+    local = p.to_local()
+    zeros = torch.zeros(tuple(local.shape[:dim])
+                        + tuple(local.shape[dim + 1:]),
+                        dtype=torch.float32, device=local.device)
+    return from_local(zeros, p.device_mesh, _placements_without(p, dim),
+                      shape)
+
+
+def _laid_out_as(t: torch.Tensor, like: torch.Tensor,
+                 placements=None) -> torch.Tensor:
+    """``t`` (a gradient, a parameter or an optimizer state) in the
+    layout of ``like`` (or in ``placements`` over its mesh), where both
+    are DTensors that differ (the rule engine lays the optimizer state
+    out by its shape: an expert stack's on its largest dim, the weight
+    on the expert dim): moved once, and not again by each op that mixes
+    the two. Plain tensors: ``t``."""
+    if not (is_dtensor(t) and is_dtensor(like)):
+        return t
+    placements = list(like.placements if placements is None
+                      else placements)
+    if list(t.placements) == placements:
+        return t
+    return t.redistribute(like.device_mesh, placements)
+
+
 def _count0(params) -> torch.Tensor:
     """The 0-d int32 step count: replicated over the mesh of DTensor
     parameters."""
@@ -104,14 +149,15 @@ def adam(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
             bc1 = 1.0 - b1 ** c
             bc2 = 1.0 - b2 ** c
             for p, g, m, v in _leaves(params, grads, state["m"], state["v"]):
-                g = g.float()
+                g = _laid_out_as(g, m).float()
                 m.mul_(b1).add_(g, alpha=1 - b1)
                 v.mul_(b2).addcmul_(g, g, value=1 - b2)
                 del g
                 step = (v / bc2).sqrt_().add_(eps)
                 step = torch.div(m / bc1, step, out=step).mul_(lr)
                 if weight_decay:
-                    step.add_(p.float(), alpha=lr * weight_decay)
+                    step.add_(_laid_out_as(p, m).float(),
+                              alpha=lr * weight_decay)
                 _apply_(p, step)
             return params, state
 
@@ -164,11 +210,8 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8,
     def init(params):
         def st(p):
             if _factored(p):
-                return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32,
-                                          device=p.device),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
-                                          dtype=torch.float32,
-                                          device=p.device)}
+                return {"vr": _zeros32_without(p, -1),
+                        "vc": _zeros32_without(p, -2)}
             return {"v": _zeros32(p)}
         return {"f": pytree.tree_map(st, params), "count": _count0(params)}
 
@@ -179,18 +222,29 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8,
             for p, g, s in zip(pytree.tree_leaves(params),
                                pytree.tree_leaves(grads),
                                _factor_states(state["f"])):
-                g = g.float()
-                g2 = g * g + eps
                 if _factored(p):
+                    g = g.float()
+                    g2 = g * g + eps
                     vr, vc = s["vr"], s["vc"]
+                    if is_dtensor(p):
+                        # the moments in the weight's layout, so that
+                        # their outer product needs no collective
+                        vr, vc = (_laid_out_as(t, p, _placements_without(
+                            p, dim)) for t, dim in ((vr, -1), (vc, -2)))
                     vr.mul_(beta).add_((1 - beta) * g2.mean(dim=-1))
                     vc.mul_(beta).add_((1 - beta) * g2.mean(dim=-2))
                     del g2
+                    for k, t in (("vr", vr), ("vc", vc)):
+                        if t is not s[k]:
+                            s[k].copy_(t)
                     denom = (vr[..., None] * vc[..., None, :]).div_(
                         torch.clamp(vr.mean(dim=-1)[..., None, None], min=eps))
+                    del vr, vc
                     step = g * denom.add_(eps).rsqrt_()
                 else:
                     v = s["v"]
+                    g = _laid_out_as(g, v).float()
+                    g2 = g * g + eps
                     v.mul_(beta).add_((1 - beta) * g2)
                     del g2
                     step = g * (v + eps).rsqrt_()

@@ -259,8 +259,10 @@ def test_kimi_head_dim_reaches_the_tensor_core_kernel_padded():
 
 
 def test_padding_is_traced_outside_the_operator():
-    # three padded copies and the operator's padded output are ordinary
-    # op outputs; the operator allocates only its output
+    # three padded copies, the operator's padded output and that output
+    # sliced back to the head dim (contiguous, so that a head merge is a
+    # view, on a rank's local shard too) are ordinary op outputs; the
+    # operator allocates only its output
     from repro_torch.core.tracer import trace_fn
 
     def attend(q, k, v):
@@ -270,4 +272,5 @@ def test_padding_is_traced_outside_the_operator():
     _, tr, _ = trace_fn(attend, q, k, k)
     sizes = sorted(b.size for b in tr.blocks.values() if b.op != "input")
     assert sizes == sorted([2 * 64 * 8 * 128 * 2, 2 * 64 * 2 * 128 * 2,
-                            2 * 64 * 2 * 128 * 2, 2 * 64 * 8 * 128 * 2])
+                            2 * 64 * 2 * 128 * 2, 2 * 64 * 8 * 128 * 2,
+                            2 * 64 * 8 * 112 * 2])
