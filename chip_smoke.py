@@ -211,9 +211,9 @@ non-zero:
    books, on the CPU, and every displaced job is re-placed or accounted
    lost, with no trace;
 12. audio_train — the same for musicgen-medium at full width, depth cut
-   to 16 layers (``--train audio``). The training paths launch neither
-   attention kernel: they train through the chunked attention, as the
-   JAX package does;
+   to 16 layers, batch 8 (``--train audio``). The training paths launch
+   neither attention kernel: they train through the chunked attention,
+   as the JAX package does;
 13. ssm_train — the same for xlstm-1.3b at full width, depth cut to
    whole periods (``--train ssm``), with no DirectProbe (the reference
    probes the transformer families only);
@@ -272,7 +272,8 @@ HYBRID_PERIOD = 2
 # it, and the run ended at 1,096 and 1,176 s (PERF.md section 6): 32
 # kept the run under 1,150 s until the MoE family's sharded runs
 # (``moe_sharded``) needed the time; 16, the depth it had before 32,
-# pays for them
+# pays for them. At 8 the estimate is off the card beyond the limits
+# (prefill +6.77 % reserved, decode -11.00 %: PERF.md section 6)
 SSM_SERVING_LAYERS = 16
 # serving paths: arch -> (B, H, Hkv, S, d) of its prefill attention, and
 # the kernels held against the plain version at that shape
@@ -336,17 +337,19 @@ PLAIN_BATCH = 8
 # 6); it trains 16 all the same: its turn is bound by its 3 steps
 # on the card (about 56 s each at 24 layers), at 24 its turn (272-281 s)
 # left the run no room for the fleet phase (1,185.6 s with it; PERF.md
-# section 5), and at 16 the CPU gate CLI still rejects 64 (batch 64 at 2
-# microbatches: 50,992.0 MiB) and admits 32. xLSTM trains its least
-# depth, one period of 8 (too few to compose by depth): one estimate
-# took about 50 s beside the other children with its sLSTM's 16 chunks
-# of 256 steps composed (core/loops.py; 204 s in full, PERF.md section
-# 6); its gate starts at 16, which it admitted after rejecting 32
+# section 5). At 16 layers its gate rejected 64 and admitted 32, whose
+# steps took 37-39 s each and DirectProbe's runs 57 s: the whole script
+# ran past 1,200 s on a slower card machine, so its gate starts at 8,
+# which it admits, as phi3.5-moe's admits its first. xLSTM trains its
+# least depth, one period of 8 (too few to compose by depth): one
+# estimate took about 50 s beside the other children with its sLSTM's 16
+# chunks of 256 steps composed (core/loops.py; 204 s in full, PERF.md
+# section 6); its gate starts at 16, which it admitted after rejecting 32
 TRAIN_JOBS = {"dense": ("qwen3-32b", 4, (8, 4, 2, 1)),
               "dense_sgd": ("qwen3-32b", 4, (8, 4, 2, 1)),
               "moe": (MOE_ARCH, 3, (8, 4, 2, 1)),
               "vlm": (VLM_ARCH, 24, (16, 8, 4, 2, 1)),
-              "audio": (AUDIO_ARCH, 16, (64, 32, 16, 8, 4, 2, 1)),
+              "audio": (AUDIO_ARCH, 16, (8, 4, 2, 1)),
               "ssm": (SSM_ARCH, 8, (16, 8, 4, 2, 1)),
               "hybrid": (HYBRID_ARCH, HYBRID_PERIOD, (1,))}
 TRAIN_SEQ = 4096            # TRAIN_4K's sequence length
@@ -359,8 +362,8 @@ LONG_TRAIN_SEQ = 16384
 # ``depth_compose`` (a process of its own, ``--depth-compose OUT``): the
 # training jobs the card runs that compose, each at its gate's admitted
 # batch (internvl2-1b rejects 16 and admits 8, musicgen-medium at 16
-# layers rejects 64 and admits 32: deeper than the depth probes;
-# xlstm-1.3b at 8 layers rejects 32 and admits 16: its sLSTM's loops):
+# layers admits 8: deeper than the depth probes; xlstm-1.3b at 8 layers
+# rejects 32 and admits 16: its sLSTM's loops):
 # (job, batch, sequence), estimated from the composed trace and from the
 # full one, to the byte; and estimates no job runs: (arch, depth or None
 # for the published one, the job whose policy it takes, batch,
@@ -371,7 +374,7 @@ LONG_TRAIN_SEQ = 16384
 # of the depth child's CPU, took the run past 1,150 s: PERF.md section
 # 6); and xlstm-1.3b's prefill at 48 layers: (batch, prompt positions),
 # into a MAX_LEN cache
-DEPTH_FULL_JOBS = (("vlm", 8, TRAIN_SEQ), ("audio", 32, TRAIN_SEQ),
+DEPTH_FULL_JOBS = (("vlm", 8, TRAIN_SEQ), ("audio", 8, TRAIN_SEQ),
                    ("ssm", 16, TRAIN_SEQ))
 DEPTH_ESTIMATES = (("qwen3-32b", None, "dense", 8, TRAIN_SEQ),
                    (AUDIO_ARCH, None, "audio", 32, TRAIN_SEQ),
